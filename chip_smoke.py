@@ -5,12 +5,16 @@
 
 Phases, each printing its own lines:
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: the four CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-     seconds and ptxas register/shared-memory lines);
+  2. build: the five CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
+     one process per source, seconds and ptxas register/shared-memory
+     lines);
   3. each kernel against its plain PyTorch version on the card, at the
      shapes of the paper's cell A, on grid-aligned inputs made from a seed
-     (integers and sums bitwise, variances within rtol 2.5e-7; segment_usage also
-     off the grid);
+     (integers and sums bitwise, variances within rtol 2.5e-7; segment_usage
+     also off the grid); the fleet's shapes too, B=8 lanes: constraint_match
+     with its lane axis, placement_commit with a per-lane flag ('both'), and
+     sched_commit with lanes of all three proposal families in modes
+     static, dynamic and both, one operand shared by the lanes;
   4. the main path: ``Simulation`` with ``greedy`` over a synthetic GCD
      trace at cell A (12,500 nodes, 262,144 task slots, sched_batch 1,024)
      for 64 windows with one accounting resync, then ``first_fit`` for a
@@ -18,10 +22,18 @@ Phases, each printing its own lines:
      just before each run and read just after it; a torch.profiler trace
      of 16 warm windows (device time by kernel, busy share of wall time);
      plus a small run checked against the plain versions on the CPU;
-  5. kernel times at the main path's shapes (CUDA events, L2 flushed,
+  5. the scenario fleet at cell A: ``ScenarioFleet`` with 8 lanes (three
+     baselines, outage, capacity, storm, amplification and a lane of an
+     external-family plugin) over 32 windows of the same trace packed with
+     the ``whatif`` CLI's injection rows (1,024), one resync; launch counts
+     reset just before and read just after; every lane's invariants; lane
+     0 against a ``Simulation`` of the same windows, bitwise; a
+     torch.profiler trace of 16 warm fleet windows; plus a small fleet on
+     the card against the CPU, both dispatch paths;
+  6. kernel times at the main path's shapes (CUDA events, L2 flushed,
      median) beside the plain version, the library call where one exists,
-     and the bound;
-  6. a ``kernels:`` status line and the JSON kernel table.
+     and the bound; sched_commit (and constraint_match) at the fleet's;
+  7. a ``kernels:`` status line and the JSON kernel table.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before it; without a CUDA device, or without the repository
@@ -45,7 +57,27 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 PROFILE_WINDOWS = 16          # traced windows of the main path (phase 4)
+FLEET_WINDOWS = 32            # windows of the cell-A fleet (phase 5)
+FLEET_B = 8                   # lanes of the cell-A fleet
+# the kernels each driven path runs (launch counts must be > 0 there)
+MAIN_PATH = ("constraint_match", "placement_commit", "window_stats",
+             "segment_usage")
+FLEET_PATH = ("constraint_match", "window_stats", "sched_commit",
+              "segment_usage")
 ULP_RTOL = 2.5e-7             # "within 2 ulp" for the variances
+
+
+PLUGIN = "smoke_pack_left"     # the fleet's external-family lane
+
+
+def _tf_pack_left(cfg, ctx, rng, params):
+    """Consolidation: prefer the most-reserved node (a proposal the fused
+    kernel cannot derive, so its rows reach kernel D as ``ext``)."""
+    return ctx.node_reserved.sum(-1)[None, :].expand(ctx.base_ok.shape)
+
+
+def _propose_pack_left(state, cfg, rng, idx, valid, base_ok, scores):
+    return state.node_reserved.sum(-1)[None, :].expand(base_ok.shape)
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -81,20 +113,18 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def profile_main_path(torch, cfg, windows, dev, Simulation) -> None:
-    """torch.profiler over a warm greedy run of ``windows``: the top device
-    time by name and the summed device time over the wall time."""
+def profile_run(torch, make_driver, label: str, n_windows: int) -> None:
+    """torch.profiler over a warm run of the driver ``make_driver()``
+    builds: the top device time by name and the summed device time over
+    the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    warm = Simulation(cfg, iter(windows), scheduler="greedy",
-                      batch_windows=len(windows), device=dev)
-    warm.run()
-    sim = Simulation(cfg, iter(windows), scheduler="greedy",
-                     batch_windows=len(windows), device=dev)
+    make_driver().run()                     # warm-up
+    driver = make_driver()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        sim.run()
+        driver.run()
         wall_us = (time.time() - t0) * 1e6
     rows = []
     for e in prof.key_averages():
@@ -108,7 +138,8 @@ def profile_main_path(torch, cfg, windows, dev, Simulation) -> None:
             rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"profile: {len(windows)} windows, wall {wall_us / 1e3:.3f} ms, "
+    print(f"profile {label}: {n_windows} windows, wall "
+          f"{wall_us / 1e3:.3f} ms, "
           f"summed device time {busy / 1e3:.3f} ms "
           f"(busy share {busy / wall_us:.3f})")
     for dev_us, count, key in rows[:15]:
@@ -140,8 +171,14 @@ def main(argv=None) -> int:
     from repro_torch.kernels.segment_usage.ref import segment_usage_ref
     from repro_torch.kernels.window_stats import ops as ws_ops
     from repro_torch.kernels.window_stats.ref import window_reductions_ref
+    from repro_torch.kernels.placement_commit.ref import (
+        sched_commit_fleet_ref)
+    from repro_torch.core.state import lane
+    from repro_torch.launch import whatif
     from repro_torch.launch.simulate import summary_row
     from repro_torch.parsers import GCDParser, default_start_us
+    from repro_torch.scenarios import ScenarioFleet, ScenarioSpec
+    from repro_torch.sched import TableForm, register_scheduler
 
     # ---- 1. device ----------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -173,6 +210,7 @@ def main(argv=None) -> int:
     counters = {"constraint_match": cm_ops.constraint_match_cuda,
                 "placement_commit": pc_ops.placement_commit_cuda,
                 "window_stats": ws_ops.window_stats_cuda,
+                "sched_commit": pc_ops.sched_commit_cuda,
                 "segment_usage": su_ops.segment_usage_cuda}
     results = {name: {} for name in counters}
 
@@ -266,6 +304,80 @@ def main(argv=None) -> int:
     print(f"E segment_usage T={T} -> N={N}: bitwise on grid, off-grid max "
           f"abs err {e_err:.3g} (rtol 1e-6)")
 
+    # fleet shapes, B=8 lanes: A with its lane axis, B with a per-lane
+    # flag, D with lanes of all three families in each mode
+    Bf = FLEET_B
+    f_cons = np.stack([rng.integers(0, K, (Bf, P, C)),
+                       np.where(rng.random((Bf, P, C)) < 0.8, 0,
+                                rng.integers(1, 5, (Bf, P, C))),
+                       rng.integers(0, 4, (Bf, P, C))],
+                      axis=-1).astype(np.int32)
+    f_total = cuda(grid(rng, 64, 256, (Bf, N, R)))
+    f_active = cuda(rng.random((Bf, N)) < 0.95)
+    fa_args = (cuda(grid(rng, 1, 48, (Bf, P, R))), cuda(f_cons), f_total,
+               cuda(grid(rng, 0, 64, (Bf, N, R))),
+               cuda(rng.integers(0, 4, (Bf, N, K)).astype(np.int32)),
+               f_active)
+    fsc_k = cm_ops.constraint_match(*fa_args)
+    fsc_r = torch.stack([constraint_match_ref(*[x[b] for x in fa_args])
+                         for b in range(Bf)])
+    torch.cuda.synchronize()
+    f_ok = torch.isfinite(fsc_r)
+    assert torch.equal(torch.isfinite(fsc_k), f_ok), "A lanes: feasibility"
+    assert torch.equal(fsc_k[f_ok], fsc_r[f_ok]), "A lanes: not bitwise"
+    print(f"A constraint_match B={Bf} P={P} N={N} (one launch): bitwise")
+
+    f_req, f_res = fa_args[0], fa_args[3]
+    f_valid = cuda(rng.random((Bf, P)) < 0.9)
+    f_total_fold = torch.where(f_active[..., None], f_total, -1.0)
+    f_denom = torch.clamp_min(f_total, 1e-6)
+    flags = cuda(np.arange(Bf) % 3 == 0)
+    fb_args = (fsc_r, f_req, f_ok, f_valid, f_total_fold, f_denom, f_res)
+    no_k, ta_k = pc_ops.placement_commit(*fb_args, flags, return_tally=True)
+    plain = [placement_commit_ref(*[x[b] for x in fb_args], bool(flags[b]))
+             for b in range(Bf)]
+    torch.cuda.synchronize()
+    assert torch.equal(no_k, torch.stack([p[0] for p in plain])), \
+        "B both: node_of differs"
+    assert torch.equal(ta_k, torch.stack([p[1] for p in plain])), \
+        "B both: tally not bitwise"
+    b_err = max(b_err, float((ta_k - torch.stack([p[1] for p in plain]))
+                             .abs().max()))
+    results["placement_commit"]["max_abs_err"] = b_err
+    print(f"B placement_commit both B={Bf} P={P} N={N}: node_of exact, "
+          f"tally bitwise, {int((no_k >= 0).sum())} placed")
+
+    # the fleet's lane layout: greedy x5 (scores), first_fit, round_robin
+    # x2 (node order), the plugin (external)
+    S_, NO_, EX_ = pc_ops.FAM_SCORES, pc_ops.FAM_NODE_ORDER, \
+        pc_ops.FAM_EXTERNAL
+    fleet_fam = (S_, NO_, NO_, S_, S_, S_, NO_, EX_)
+    fleet_dyn = (True, False, False, True, True, True, False, False)
+    d_ext = cuda(grid(rng, -64, 64, (2, P, N)))
+    d_ext_row = (0,) * (Bf - 1) + (1,)
+    d_start = cuda(rng.integers(0, N, Bf).astype(np.int32))
+    d_err = 0.0
+    for mode, dyn, shared in (("static", (False,) * Bf, False),
+                              ("dynamic", (True,) * Bf, False),
+                              ("both", fleet_dyn, True)):
+        ops = [fsc_r, f_ok, f_req, f_valid, f_total_fold, f_denom, f_res]
+        if shared:        # the lanes share one request matrix
+            ops[2] = ops[2][:1].contiguous()
+        got = pc_ops.sched_commit_fleet(*ops, d_start, fam=fleet_fam,
+                                        dynamic=dyn, ext=d_ext,
+                                        ext_row=d_ext_row)
+        want = sched_commit_fleet_ref(*ops, d_start, fleet_fam, dyn, d_ext,
+                                      d_ext_row)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]), f"D {mode}: node_of differs"
+        assert torch.equal(got[1], want[1]), f"D {mode}: tally not bitwise"
+        d_err = max(d_err, float((got[1] - want[1]).abs().max()))
+        print(f"D sched_commit {mode} B={Bf} P={P} N={N} families "
+              f"{fleet_fam}{' (req shared by the lanes)' if shared else ''}"
+              f": node_of exact, tally bitwise, "
+              f"{int((got[0] >= 0).sum())} placed")
+    results["sched_commit"]["max_abs_err"] = d_err
+
     # ---- 4. the main path at cell A -----------------------------------
     tmp = tempfile.TemporaryDirectory()
     t0 = time.time()
@@ -279,7 +391,21 @@ def main(argv=None) -> int:
     windows = list(parser.packed_windows(
         args.windows, start_us=default_start_us("gcd", cfg)))
     t_parse = time.time() - t0
+    # the fleet's windows: the same trace, packed with the injection rows
+    # the whatif CLI reserves for an --arrival rate above 1 at cell A
+    fcfg = whatif.build_cfg(argparse.Namespace(
+        cell_a=True, nodes=None, tasks=None, use_kernels=False,
+        stats_stride=1, dispatch=None, inject_slots=None,
+        arrival="1.0,1.5"))
+    assert fcfg.inject_slots == 1024, fcfg.inject_slots
+    fcfg = dataclasses.replace(fcfg, resync_windows=FLEET_WINDOWS)
+    t0 = time.time()
+    fparser = GCDParser(fcfg, tmp.name)
+    fleet_ws = list(fparser.packed_windows(
+        FLEET_WINDOWS, start_us=default_start_us("gcd", fcfg)))
+    t_fparse = time.time() - t0
     tmp.cleanup()
+    assert fparser.stats.slot_overflow == 0, "slot_overflow in the parse"
     n_events = int(sum(int(w.n_valid) for w in windows))
     print(f"trace: {summary} generated in {t_gen:.1f}s")
     print(f"parse: {len(windows)} windows, {n_events} events in "
@@ -310,7 +436,7 @@ def main(argv=None) -> int:
     print("invariants:", problems or "OK")
     assert not problems, problems
     print(f"launches (greedy run): {launches}")
-    assert all(n > 0 for n in launches.values()), launches
+    assert all(launches[k] > 0 for k in MAIN_PATH), launches
     assert launches["segment_usage"] >= 2, launches
     del state, sim
 
@@ -330,7 +456,10 @@ def main(argv=None) -> int:
     assert launches_ff["placement_commit"] == ff_windows, launches_ff
     del state_ff, sim_ff
 
-    profile_main_path(torch, cfg, windows[:PROFILE_WINDOWS], dev, Simulation)
+    prof_ws = windows[:PROFILE_WINDOWS]
+    profile_run(torch, lambda: Simulation(
+        cfg, iter(prof_ws), scheduler="greedy", batch_windows=len(prof_ws),
+        device=dev), "main path greedy", len(prof_ws))
 
     # the card against the plain versions on a small cell, end to end
     small = dataclasses.replace(cfg, max_nodes=48, max_tasks=1024,
@@ -357,8 +486,116 @@ def main(argv=None) -> int:
     print(f"small cell (48 nodes, 40 windows): card == plain CPU path "
           f"(decisions exact, stats rtol 1e-5)")
 
-    # ---- 5. times at the main path's shapes ---------------------------
+    # ---- 5. the scenario fleet at cell A -------------------------------
+    register_scheduler(PLUGIN, _propose_pack_left,
+                       table_form=TableForm(_tf_pack_left))
+    specs = [ScenarioSpec(name="greedy"),
+             ScenarioSpec(name="first_fit", scheduler="first_fit"),
+             ScenarioSpec(name="round_robin", scheduler="round_robin"),
+             ScenarioSpec(name="greedy/outage=0.2", node_outage_frac=0.2),
+             ScenarioSpec(name="greedy/cap=0.8", capacity_scale=0.8),
+             ScenarioSpec(name="greedy/storm=0.05", evict_storm_frac=0.05),
+             ScenarioSpec(name="round_robin/rate=1.5",
+                          scheduler="round_robin", arrival_rate=1.5),
+             ScenarioSpec(name=PLUGIN, scheduler=PLUGIN)]
+    assert len(specs) == FLEET_B
+    for fn in counters.values():
+        fn.launches = 0
+    fleet = ScenarioFleet(fcfg, iter(fleet_ws), specs, batch_windows=32,
+                          device=dev)
+    t0 = time.time()
+    fstate = fleet.run()
+    fwall = time.time() - t0
+    launches_fleet = {name: fn.launches for name, fn in counters.items()}
+    fsf = fleet.stats_frame()
+    assert fleet.windows_done == FLEET_WINDOWS and fleet.resyncs_done == 1
+    for k, v in fsf.items():
+        assert v.shape[:2] == (FLEET_WINDOWS, FLEET_B), (k, v.shape)
+        assert np.all(np.isfinite(v)), k
+    print(f"fleet: {FLEET_B} lanes x {FLEET_WINDOWS} windows in "
+          f"{fwall:.3f}s -> {FLEET_WINDOWS / fwall:.2f} windows/s, "
+          f"{FLEET_B * FLEET_WINDOWS / fwall:.2f} lane-windows/s (parse "
+          f"{t_fparse:.1f}s apart, inject_slots {fcfg.inject_slots}), "
+          f"{fleet.resyncs_done} resync(s)")
+    report = fleet.report()
+    for b, row in enumerate(report["scenarios"]):
+        problems = validate_invariants(lane(fstate, b), fcfg)
+        assert not problems, (row["scenario"], problems)
+        print(f"  lane {b} {row['scenario']:<22} placed {row['placements']:>6}"
+              f" evicted {row['evictions']:>5} injected {row['injected']:>5}"
+              f" pending {row['pending_final']:>6} invariants: OK")
+    print(f"launches (fleet run): {launches_fleet}")
+    assert all(launches_fleet[k] > 0 for k in FLEET_PATH), launches_fleet
+    assert launches_fleet["sched_commit"] == FLEET_WINDOWS, launches_fleet
+    assert report["scenarios"][6]["injected"] > 0
+    assert report["scenarios"][5]["evictions"] > \
+        report["scenarios"][0]["evictions"]
+
+    lane0 = Simulation(fcfg, iter(fleet_ws), scheduler="greedy",
+                       batch_windows=32, device=dev)
+    state0 = lane0.run()
+    sf0 = lane0.stats_frame()
+    for f in state0._fields:
+        assert torch.equal(getattr(fstate, f)[0], getattr(state0, f)), \
+            f"lane 0 {f} differs from Simulation"
+    for k, v in sf0.items():
+        assert np.array_equal(fsf[k][:, 0], v), f"lane 0 stats {k}"
+    print(f"fleet lane 0 == Simulation over the same {FLEET_WINDOWS} "
+          "windows: state and stats bitwise")
+    del fleet, fstate, lane0, state0
+    prof_fws = fleet_ws[:PROFILE_WINDOWS]
+    profile_run(torch, lambda: ScenarioFleet(
+        fcfg, iter(prof_fws), specs, batch_windows=len(prof_fws),
+        device=dev), f"fleet B={FLEET_B}", len(prof_fws))
+
+    # a small fleet on the card against the plain CPU path, both dispatches
+    small_f = dataclasses.replace(small, inject_slots=128)
+    with tempfile.TemporaryDirectory() as d:
+        tracegen.generate_trace(d, n_machines=48, n_jobs=120,
+                                horizon_windows=40, seed=args.seed + 1)
+        small_fws = list(GCDParser(small_f, d).packed_windows(
+            40, start_us=default_start_us("gcd", small_f)))
+    small_specs = [specs[0], specs[1], specs[5], specs[6], specs[7],
+                   ScenarioSpec(name="greedy/outage=0.2",
+                                node_outage_frac=0.2)]
+    for dispatch in ("auto", "switch"):
+        c = dataclasses.replace(small_f, sched_dispatch=dispatch)
+        runs = {}
+        for device in (dev, torch.device("cpu")):
+            fl = ScenarioFleet(c, iter(small_fws), small_specs,
+                               batch_windows=8, device=device)
+            runs[device.type] = (fl.run(), fl.stats_frame())
+        (st_g, sf_g), (st_c, sf_c) = runs["cuda"], runs["cpu"]
+        for f in st_c._fields:
+            if getattr(st_c, f).dtype != torch.float32:
+                assert torch.equal(getattr(st_g, f).cpu(),
+                                   getattr(st_c, f)), (dispatch, f)
+        for k in sf_c:
+            if sf_c[k].dtype.kind in "iub":
+                assert np.array_equal(sf_g[k], sf_c[k]), (dispatch, k)
+            else:
+                np.testing.assert_allclose(sf_g[k], sf_c[k], rtol=1e-5,
+                                           atol=1e-6, err_msg=k)
+        print(f"small fleet ({len(small_specs)} lanes, 48 nodes, 40 "
+              f"windows, dispatch {dispatch}): card == plain CPU path "
+              "(state and decisions exact, stats rtol 1e-5)")
+
+    # ---- 6. times at the main path's shapes ---------------------------
     W = args.windows
+    # D at the fleet's shapes and lane layout: the bytes each lane must
+    # read once (ok; scores only for static score-family lanes; ext rows of
+    # the external lanes; denom only for dynamic lanes) and write
+    d_args = (fsc_r, f_ok, f_req, f_valid, f_total_fold, f_denom, f_res)
+    d_kw = dict(fam=fleet_fam, dynamic=fleet_dyn, ext=d_ext,
+                ext_row=d_ext_row)
+    n_dyn = sum(fleet_dyn)
+    n_score_static = sum(f == S_ and not d
+                         for f, d in zip(fleet_fam, fleet_dyn))
+    n_ext_rows = len({r for f, r in zip(fleet_fam, d_ext_row) if f == EX_})
+    d_bytes = (Bf * P * N + (n_score_static + n_ext_rows) * P * N * 4
+               + nbytes(f_req, f_valid, f_total_fold, f_res)
+               + n_dyn * N * R * 4 + Bf * 16 + Bf * P * 4 + Bf * N * R * 4)
+    d_ops = Bf * P * N * (3 * R + 1) + n_dyn * P * N * 3 * R
     lib_idx = torch.where(mask & (task_node >= 0), task_node.long(), N)
     pl_bytes = nbytes(req, ok, valid, total_f, denom, node_res) \
         + P * 4 + N * R * 4
@@ -388,6 +625,11 @@ def main(argv=None) -> int:
                 0, lib_idx, values)[:N], 10, 5,
             nbytes(task_node, values, mask) + N * R * 4,
             int((mask & (task_node >= 0)).sum()) * R),
+        "sched_commit": (
+            lambda: pc_ops.sched_commit_fleet(*d_args, d_start, **d_kw),
+            lambda: sched_commit_fleet_ref(*d_args, d_start, fleet_fam,
+                                           fleet_dyn, d_ext, d_ext_row),
+            None, 5, 2, d_bytes, d_ops),
     }
     for name, (kfn, pfn, lfn, reps, preps, nb, nops) in timings.items():
         ms = time_ms(torch, kfn, reps)
@@ -397,15 +639,31 @@ def main(argv=None) -> int:
         results[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=b_ms, bound_by=b_by)
         lib = f"{lib_ms:.4f}" if lib_ms is not None else "-"
-        print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {lib} ms, {launches[name] / W:.4g} launches/window, "
-              f"bound {b_ms:.4f} ms ({b_by}) [{smi}]")
+        shapes = (f"fleet B={Bf}" if name == "sched_commit"
+                  else "main path")
+        print(f"time {name} ({shapes}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {lib} ms, launches/window "
+              f"{launches[name] / W:.4g} main, "
+              f"{launches_fleet[name] / FLEET_WINDOWS:.4g} fleet, bound "
+              f"{b_ms:.4f} ms ({b_by}) [{smi}]")
+    # A with its lane axis, at the fleet's shapes
+    ms = time_ms(torch, lambda: cm_ops.constraint_match(*fa_args), 10)
+    plain_ms = time_ms(torch, lambda: [constraint_match_ref(
+        *[x[b] for x in fa_args]) for b in range(Bf)], 2, warmup=1)
+    b_ms, b_by = bound_ms(nbytes(*fa_args) + Bf * P * N * 4,
+                          Bf * P * N * (6 * R + 2 * C))
+    results["constraint_match"]["fleet"] = dict(
+        lanes=Bf, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"time constraint_match (fleet B={Bf}, one launch): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}) [{smi}]")
 
-    # ---- 6. the kernel table ------------------------------------------
+    # ---- 7. the kernel table ------------------------------------------
     meta = {
         "constraint_match": ("src/repro/kernels/constraint_match/kernel.py:76",),
         "placement_commit": ("src/repro/kernels/placement_commit/kernel.py:121",),
         "window_stats": ("src/repro/kernels/window_stats/kernel.py:124",),
+        "sched_commit": ("src/repro/kernels/placement_commit/kernel.py:434",),
         "segment_usage": ("src/repro/kernels/segment_usage/kernel.py:39",),
     }
     table = []
@@ -414,10 +672,14 @@ def main(argv=None) -> int:
         table.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": meta[name][0], "launches": launches[name],
+            "replaces": meta[name][0],
+            "launches": launches[name] + launches_fleet[name],
+            "launches_by_path": {"simulate": launches[name],
+                                 "fleet": launches_fleet[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"fleet": r["fleet"]} if "fleet" in r else {})})
     print("kernels: " + " ".join(f"{t['name']}=ok(cuda)" for t in table))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,14 @@ over a stack of windows, issuing the window's kernels one after another on
 the current stream without a host sync (the reference scans them on the
 device); the host pipeline (core/pipeline.py) streams stacked windows in.
 
+The passes below take *lane-batched* state and windows: every field has a
+leading lane axis B, the scenario fleet's worlds (``scenarios/batch.py``),
+where the reference vmaps a single-world step. Each pass issues one set of
+launches for all lanes (scatters over the flattened (B*n) tables, see
+core/scatter.py). The single trajectory is a fleet of one lane:
+``run_windows`` and ``make_window_step`` lift their state to B=1 views and
+drop the lane axis again on the way out.
+
 Accounting (``node_reserved`` / ``node_used``) has two modes:
 
 * **incremental** (``cfg.incremental_accounting``, the default): every pass
@@ -40,9 +48,9 @@ from repro_torch.config import SimConfig
 from repro_torch.core import stats as stats_mod
 from repro_torch.core.events import (REMOVE_REASON_EVICT, EventKind,
                                      EventWindow)
-from repro_torch.core.scatter import add_rows, set_rows_
+from repro_torch.core.scatter import add_rows, set_rows_, take
 from repro_torch.core.state import (SimState, TASK_EMPTY, TASK_PENDING,
-                                    TASK_RUNNING)
+                                    TASK_RUNNING, drop, lift)
 from repro_torch.kernels.segment_usage.ops import segment_usage
 
 Stats = Dict[str, torch.Tensor]
@@ -76,8 +84,8 @@ def apply_node_events(state: SimState, w: EventWindow, cfg: SimConfig
     # the 2-D (node, attr) scatter as a 1-D one over the flattened table
     in_range = (slot >= 0) & (slot < N) & (w.attr_idx >= 0) & (w.attr_idx < K)
     flat = slot.long() * K + w.attr_idx.long()
-    set_rows_(state.node_attrs.view(-1), flat, (aat | rat) & in_range,
-              torch.where(aat, w.attr_val, 0))
+    set_rows_(state.node_attrs.view(state.node_attrs.shape[0], -1), flat,
+              (aat | rat) & in_range, torch.where(aat, w.attr_val, 0))
 
     set_rows_(state.node_active, slot, rem, False)
     return state
@@ -97,15 +105,15 @@ def apply_task_events(state: SimState, w: EventWindow, cfg: SimConfig
     # pre-mutation gathers (removal counters + incremental deltas); gathers
     # clamp the index as the reference's do
     at = slot.long().clamp(0, T - 1)
-    old_state_at = state.task_state[at]
+    old_state_at = take(state.task_state, at)
     live = old_state_at != TASK_EMPTY
 
     node_reserved, node_used = state.node_reserved, state.node_used
     if cfg.incremental_accounting:
         was_running = old_state_at == TASK_RUNNING
-        ev_node = state.task_node[at]                          # (E,)
-        old_req = state.task_req[at]                           # (E, R)
-        old_used = accounted_usage(state.task_usage[at])       # (E, R)
+        ev_node = take(state.task_node, at)                    # (B, E)
+        old_req = take(state.task_req, at)                     # (B, E, R)
+        old_used = accounted_usage(take(state.task_usage, at))
         # lifecycle rows that end a RUNNING placement give back req + usage
         gone = (rem | add) & was_running
         node_reserved = add_rows(node_reserved, ev_node, gone, -old_req)
@@ -116,9 +124,9 @@ def apply_task_events(state: SimState, w: EventWindow, cfg: SimConfig
                                  w.a - old_req)
 
     # --- removals first (a slot can be freed and re-used next window) ---
-    evicted = rem & live & (w.a[:, 0] == float(REMOVE_REASON_EVICT))
-    n_evict = evicted.sum(dtype=torch.int32)
-    n_rem = (rem & live).sum(dtype=torch.int32) - n_evict
+    evicted = rem & live & (w.a[..., 0] == float(REMOVE_REASON_EVICT))
+    n_evict = evicted.sum(-1, dtype=torch.int32)
+    n_rem = (rem & live).sum(-1, dtype=torch.int32) - n_evict
     set_rows_(state.task_state, slot, rem, TASK_EMPTY)
     set_rows_(state.task_node, slot, rem, -1)
 
@@ -134,7 +142,7 @@ def apply_task_events(state: SimState, w: EventWindow, cfg: SimConfig
     if cfg.incremental_accounting:
         # a sample moves node_used only if the task still runs after the
         # lifecycle rows above (its own REMOVE in this window wins)
-        samp = use & (state.task_state[at] == TASK_RUNNING)
+        samp = use & (take(state.task_state, at) == TASK_RUNNING)
         node_used = add_rows(node_used, ev_node, samp,
                              accounted_usage(w.u) - old_used)
     set_rows_(state.task_usage, slot, use, w.u)
@@ -154,16 +162,17 @@ def evict_invalid(state: SimState, cfg: SimConfig) -> SimState:
     incremental accounting every running task on a dead/overcommitted node
     is evicted, so those node rows drop to exactly zero.
     """
-    node_idx = state.task_node.clamp_min(0).long()
-    dead = ~state.node_active[node_idx]
-    over_nodes = (state.node_reserved > state.node_total + 1e-6).any(dim=1)
-    bad = (state.task_state == TASK_RUNNING) & (dead | over_nodes[node_idx])
-    n_evict = bad.sum(dtype=torch.int32)
+    node_idx = state.task_node.clamp_min(0)
+    dead = ~take(state.node_active, node_idx)
+    over_nodes = (state.node_reserved > state.node_total + 1e-6).any(dim=-1)
+    bad = (state.task_state == TASK_RUNNING) & (
+        dead | take(over_nodes, node_idx))
+    n_evict = bad.sum(-1, dtype=torch.int32)
     state.task_state.masked_fill_(bad, TASK_PENDING)
     state.task_node.masked_fill_(bad, -1)
     state = state._replace(evictions=state.evictions + n_evict)
     if cfg.incremental_accounting:
-        bad_node = (~state.node_active | over_nodes)[:, None]
+        bad_node = (~state.node_active | over_nodes)[..., None]
         state = state._replace(
             node_reserved=torch.where(bad_node, 0.0, state.node_reserved),
             node_used=torch.where(bad_node, 0.0, state.node_used))
@@ -171,21 +180,27 @@ def evict_invalid(state: SimState, cfg: SimConfig) -> SimState:
 
 
 def recompute_accounting(state: SimState, cfg: SimConfig) -> SimState:
-    """node_reserved / node_used from the task table (segment-usage kernel):
-    the inner loop in full-recompute mode, the periodic resync under
-    incremental accounting."""
+    """node_reserved / node_used from the task table (segment-usage kernel,
+    one launch per lane and tally): the inner loop in full-recompute mode,
+    the periodic resync under incremental accounting."""
     running = state.task_state == TASK_RUNNING
-    reserved = segment_usage(state.task_node, state.task_req, running,
-                             cfg.max_nodes)
-    used = segment_usage(state.task_node, accounted_usage(state.task_usage),
-                         running, cfg.max_nodes)
+    used_cols = accounted_usage(state.task_usage)
+    lanes = range(state.task_state.shape[0])
+    reserved = torch.stack([
+        segment_usage(state.task_node[b], state.task_req[b], running[b],
+                      cfg.max_nodes) for b in lanes])
+    used = torch.stack([
+        segment_usage(state.task_node[b], used_cols[b], running[b],
+                      cfg.max_nodes) for b in lanes])
     return state._replace(node_reserved=reserved, node_used=used)
 
 
 def make_window_advance(cfg: SimConfig, scheduler_fn: Callable
                         ) -> Callable[[SimState, EventWindow, object],
                                       SimState]:
-    """The stats-free single-window transition (state in, state out)."""
+    """The stats-free single-window transition over lane-batched state and
+    window (every field with a leading lane axis; ``scheduler_fn`` takes
+    lane-batched states too, as the registry's entries do)."""
 
     def advance(state: SimState, w: EventWindow, rng=None) -> SimState:
         state = apply_node_events(state, w, cfg)
@@ -206,12 +221,14 @@ def make_window_advance(cfg: SimConfig, scheduler_fn: Callable
 def make_window_step(cfg: SimConfig, scheduler_fn: Callable
                      ) -> Callable[[SimState, EventWindow, object],
                                    Tuple[SimState, Stats]]:
-    """The single-window transition plus its stats row."""
+    """The single-trajectory window transition plus its stats row
+    (unbatched state and window in, unbatched state and row out)."""
     advance = make_window_advance(cfg, scheduler_fn)
 
     def sim_window_step(state: SimState, w: EventWindow, rng=None):
-        state = advance(state, w, rng)
-        return state, stats_mod.window_stats(state, cfg)
+        state = advance(lift(state), lift(w), rng)
+        row = stats_mod.window_stats(state, cfg)
+        return drop(state), {k: v[0] for k, v in row.items()}
 
     return sim_window_step
 
@@ -259,7 +276,8 @@ def scan_strided(chunk: Callable, state, windows: EventWindow, W: int,
 def run_windows(state: SimState, windows: EventWindow, cfg: SimConfig,
                 scheduler_fn: Callable, seed: int = 0
                 ) -> Tuple[SimState, Stats]:
-    """Advance over stacked windows (W leading dim on every field).
+    """Advance one trajectory over stacked windows (W leading dim on every
+    field); the engine runs it as a fleet of one lane.
 
     Takes ownership of ``state`` (its tables are updated in place). With
     ``cfg.stats_stride == k > 1`` one stats row is emitted per k windows —
@@ -270,14 +288,15 @@ def run_windows(state: SimState, windows: EventWindow, cfg: SimConfig,
     """
     advance = make_window_advance(cfg, scheduler_fn)
     W = windows.kind.shape[0]
-    stride = cfg.stats_stride
+    lanes = lift(state)
     if W == 0:
-        return state, {k: v[None][:0] for k, v in
-                       stats_mod.window_stats(state, cfg).items()}
+        return state, {k: v[:0] for k, v in
+                       stats_mod.window_stats(lanes, cfg).items()}
 
     def chunk(s, ws):
         for j in range(ws.kind.shape[0]):
-            s = advance(s, window_at(ws, j), None)
+            s = advance(s, lift(window_at(ws, j)), None)
         return s, stats_mod.window_stats(s, cfg)
 
-    return scan_strided(chunk, state, windows, W, stride)
+    lanes, rows = scan_strided(chunk, lanes, windows, W, cfg.stats_stride)
+    return drop(lanes), {k: v[:, 0] for k, v in rows.items()}

@@ -30,7 +30,7 @@ import torch
 from repro_torch.config import SimConfig
 from repro_torch.core import engine as engine_mod
 from repro_torch.core.events import EventWindow, stack_windows
-from repro_torch.core.state import SimState, init_state
+from repro_torch.core.state import SimState, drop, init_state, lift
 from repro_torch.device import resolve_device
 from repro_torch.sched import get_scheduler
 
@@ -285,4 +285,5 @@ class Simulation(WindowedDriver):
         return stats
 
     def _resync(self):
-        return engine_mod.recompute_accounting(self.state, self.cfg)
+        return drop(engine_mod.recompute_accounting(lift(self.state),
+                                                    self.cfg))

@@ -19,17 +19,45 @@ the scatter drops. Here:
 Masked rows go to overflow slots of their own (one per event row), not to
 one shared slot: on the card a run of thousands of equal indices would be
 summed (or max-reduced) one after another by a single thread.
+
+Both take a lane axis: with ``rows`` of shape (B, E) the table is (B, n,
+...) and lane b's rows address lane b's table only. The scatter then runs
+once over the flattened (B*n, ...) table, each lane's slots offset by
+``b*n`` (a row outside [0, n) is dropped, never carried into a
+neighbouring lane), so one launch serves every lane and each lane's rows
+keep their order.
 """
 from __future__ import annotations
 
 import torch
 
 
+def lane_flat(rows: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, E) per-lane rows -> (B*E,) rows of the flattened (B*n) table;
+    rows outside [0, n) become -1 (dropped)."""
+    rows = rows.long()
+    off = torch.arange(rows.shape[0], device=rows.device)[:, None] * n
+    return torch.where((rows >= 0) & (rows < n), rows + off, -1).reshape(-1)
+
+
 def set_rows_(dst: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor,
               vals) -> None:
     """``dst[rows[e]] = vals[e]`` for every row ``e`` with ``mask[e]`` and
     ``0 <= rows[e] < len(dst)``, last row winning; others are dropped.
-    ``vals`` is a tensor with one entry per row, or a Python scalar."""
+    ``vals`` is a tensor with one entry per row, or a Python scalar. With
+    (B, E) ``rows`` and ``mask``, ``dst`` is (B, n, ...) and ``vals`` (B,
+    E, ...) or a scalar."""
+    if rows.dim() == 2:
+        B, n = dst.shape[0], dst.shape[1]
+        if B == 1:
+            set_rows_(dst[0], rows[0], mask[0],
+                      vals[0] if isinstance(vals, torch.Tensor) else vals)
+            return
+        if isinstance(vals, torch.Tensor):
+            vals = vals.reshape((-1,) + tuple(vals.shape[2:]))
+        set_rows_(dst.view((B * n,) + tuple(dst.shape[2:])),
+                  lane_flat(rows, n), mask.reshape(-1), vals)
+        return
     n, E = dst.shape[0], rows.shape[0]
     rows = rows.long()
     ok = mask & (rows >= 0) & (rows < n)
@@ -48,7 +76,16 @@ def set_rows_(dst: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor,
 def add_rows(acc: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor,
              vals: torch.Tensor) -> torch.Tensor:
     """``acc (N, R)`` plus ``vals (E, R)`` at ``rows`` where ``mask``;
-    other rows are dropped. Returns a new tensor."""
+    other rows are dropped. Returns a new tensor. With (B, E) ``rows`` and
+    ``mask``: ``acc`` (B, N, R) and ``vals`` (B, E, R)."""
+    if rows.dim() == 2:
+        B, n = acc.shape[0], acc.shape[1]
+        if B == 1:
+            return add_rows(acc[0], rows[0], mask[0], vals[0])[None]
+        out = add_rows(acc.reshape((B * n,) + tuple(acc.shape[2:])),
+                       lane_flat(rows, n), mask.reshape(-1),
+                       vals.reshape((-1,) + tuple(vals.shape[2:])))
+        return out.view(acc.shape)
     n, E = acc.shape[0], rows.shape[0]
     rows = rows.long()
     ok = mask & (rows >= 0) & (rows < n)
@@ -57,3 +94,10 @@ def add_rows(acc: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor,
     buf.index_put_((torch.where(ok, rows, overflow),),
                    torch.where(mask[:, None], vals, 0.0), accumulate=True)
     return buf[:n]
+
+
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-lane row gather: ``x`` (B, n, ...) at ``idx`` (B, E) ->
+    (B, E, ...)."""
+    lanes = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[lanes, idx.long()]

@@ -6,6 +6,11 @@ Field names, shapes and dtypes are the reference's (``task_state`` int8,
 only where they are used. The engine updates the task tables in place (they
 are the large ones), so a state handed to ``run_windows`` or ``Simulation``
 belongs to it from then on.
+
+The engine works on *lane-batched* states, every field with a leading lane
+axis B (the scenario fleet's worlds; B=1 for the single trajectory).
+:func:`lift` and :func:`drop` move between the two forms with views, so an
+in-place update through a lifted state lands in the original tables.
 """
 from __future__ import annotations
 
@@ -40,6 +45,21 @@ class SimState(NamedTuple):
     completions: torch.Tensor      # ()     i32
     placements: torch.Tensor       # ()     i32
     overflow_drops: torch.Tensor   # ()     i32 pending tasks that never fit
+
+
+def lift(state):
+    """A lane axis of size 1 in front of every field (views)."""
+    return type(state)(*[x.unsqueeze(0) for x in state])
+
+
+def drop(state):
+    """The single lane of a B=1 state (views)."""
+    return type(state)(*[x.squeeze(0) for x in state])
+
+
+def lane(state, b: int):
+    """Lane ``b`` of a lane-batched state or tuple (views)."""
+    return type(state)(*[x[b] for x in state])
 
 
 def init_state(cfg: SimConfig, device) -> SimState:

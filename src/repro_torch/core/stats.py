@@ -25,7 +25,8 @@ from typing import Dict
 import torch
 
 from repro_torch.config import SimConfig
-from repro_torch.core.state import SimState, TASK_PENDING, TASK_RUNNING
+from repro_torch.core.state import (SimState, TASK_PENDING, TASK_RUNNING,
+                                    lift)
 from repro_torch.kernels.window_stats.ops import window_reductions
 from repro_torch.kernels.window_stats.ref import node_reserved_frac, spread
 
@@ -50,21 +51,25 @@ def _counters(state: SimState) -> Dict[str, torch.Tensor]:
 
 def window_stats(state: SimState, cfg: SimConfig) -> Dict[str, torch.Tensor]:
     """One stats row from the current state (fused path; see module doc:
-    ``cfg.fused_window_stats`` is not read)."""
+    ``cfg.fused_window_stats`` is not read). A lane-batched state (a
+    leading lane axis on every field) gives one row per lane, every value
+    with that lane axis in front, from one kernel launch."""
+    if state.window.dim() == 0:
+        return {k: v[0] for k, v in window_stats(lift(state), cfg).items()}
     red = window_reductions(
         state.task_state, state.task_usage, state.task_prio,
         state.node_active, state.node_total, state.node_reserved,
         state.node_used)
     denom = torch.clamp_min(red.cap, 1e-9)
+    n_running = red.n_running[:, None]
     usage_mean = torch.where(
-        red.n_running > 0,
-        red.usage_sum / torch.clamp_min(red.n_running, 1), 0.0)
+        n_running > 0, red.usage_sum / torch.clamp_min(n_running, 1), 0.0)
     return {
         "n_nodes": red.n_nodes,
         "n_running": red.n_running,
         "n_pending": red.n_pending,
-        "running_by_priority": red.by_prio[:, 0],
-        "pending_by_priority": red.by_prio[:, 1],
+        "running_by_priority": red.by_prio[..., 0],
+        "pending_by_priority": red.by_prio[..., 1],
         "capacity": red.cap,
         "reserved": red.reserved,
         "used": red.used,

@@ -59,20 +59,23 @@ def window_reductions(task_state, task_usage, task_prio, node_active,
 
     task_state (T,) i8, task_usage (T, U) f32, task_prio (T,) i32,
     node_active (N,) bool, node_total/node_reserved/node_used (N, R) f32
-    -> :class:`WindowReductions`.
+    -> :class:`WindowReductions`; or each with a leading lane axis B, and
+    then every field of the result too (one kernel launch for all lanes).
     """
+    args = (task_state, task_usage, task_prio, node_active, node_total,
+            node_reserved, node_used)
+    if task_state.dim() == 1:
+        return WindowReductions(*[f[0] for f in window_reductions(
+            *[x[None] for x in args])])
     if task_state.device.type != "cuda":
-        return window_reductions_ref(task_state, task_usage, task_prio,
-                                     node_active, node_total, node_reserved,
-                                     node_used)
+        lanes = [window_reductions_ref(*[x[b] for x in args])
+                 for b in range(task_state.shape[0])]
+        return WindowReductions(*[torch.stack(f) for f in zip(*lanes)])
     counts, by_prio, usage_sum, node_red = window_stats_cuda(
-        *(x.contiguous()[None] for x in
-          (task_state, task_usage, task_prio, node_active, node_total,
-           node_reserved, node_used)))
+        *(x.contiguous() for x in args))
     R = node_total.shape[-1]
-    counts, node_red = counts[0], node_red[0]
     return WindowReductions(
-        n_running=counts[0], n_pending=counts[1], n_nodes=counts[2],
-        by_prio=by_prio[0], usage_sum=usage_sum[0], cap=node_red[0:R],
-        reserved=node_red[R:2 * R], used=node_red[2 * R:3 * R],
-        util_var=node_red[3 * R], res_var=node_red[3 * R + 1])
+        n_running=counts[:, 0], n_pending=counts[:, 1], n_nodes=counts[:, 2],
+        by_prio=by_prio, usage_sum=usage_sum, cap=node_red[:, 0:R],
+        reserved=node_red[:, R:2 * R], used=node_red[:, 2 * R:3 * R],
+        util_var=node_red[:, 3 * R], res_var=node_red[:, 3 * R + 1])

@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.sched.registry import register_scheduler
+from repro_torch.sched.table import (FAM_NODE_ORDER, FAM_SCORES, TableForm,
+                                     tf_node_order, tf_scores)
 
 
 def propose_greedy(state, cfg, rng, idx, valid, base_ok, scores):
@@ -33,11 +35,22 @@ def propose_round_robin(state, cfg, rng, idx, valid, base_ok, scores):
     return _node_order_pref(start, cfg.max_nodes, base_ok)
 
 
+# Table forms make these switchless in fleets (sched.table): greedy fuses
+# as the score family, first_fit/round_robin as node-order rotations (rot=0
+# / rot=131 — ``start = (window * rot) % N`` reproduces the proposals
+# bitwise).
 greedy = register_scheduler("greedy", propose_greedy, dynamic_bestfit=True,
                             doc="Best-fit decreasing: tightest feasible "
-                                "node, re-scored dynamically.")
+                                "node, re-scored dynamically.",
+                            table_form=TableForm(tf_scores,
+                                                 fused=FAM_SCORES))
 first_fit = register_scheduler("first_fit", propose_first_fit,
-                               doc="First-fit: lowest-index feasible node.")
+                               doc="First-fit: lowest-index feasible node.",
+                               table_form=TableForm(tf_node_order, (0.0,),
+                                                    FAM_NODE_ORDER))
 round_robin = register_scheduler("round_robin", propose_round_robin,
                                  doc="Round-robin over node indices, "
-                                     "rotating start per window.")
+                                     "rotating start per window.",
+                                 table_form=TableForm(tf_node_order,
+                                                      (131.0,),
+                                                      FAM_NODE_ORDER))

@@ -4,9 +4,16 @@ A *proposal* has the uniform signature
 
     propose(state, cfg, rng, idx, valid, base_ok, scores) -> pref (P, N)
 
-and the registry glues it to the shared passes (``base.base_pass`` in front,
-``commit.finalize`` behind) to derive the ``(state, cfg, rng) -> state``
-entry point.
+over ONE lane, and the registry glues it to the shared passes
+(``base.base_pass`` in front, ``commit.finalize`` behind) to derive the
+``(state, cfg, rng) -> state`` entry point, which takes a single state or a
+lane-batched one (every lane running this scheduler: one base pass, the
+proposal per lane, one commit).
+
+A scheduler may also register a *table form* (``sched.table``), which lets
+the scenario fleet dispatch it switchlessly and fuse its preference into
+the commit kernel. ``TABLE_FORMS`` is a live view of the registry;
+:func:`snapshot_dispatch` freezes the rows a fleet was built against.
 
 The reference's RNG schedulers (``random`` and the metaheuristics) wait
 for the port of its random streams; asking for one raises and says so.
@@ -14,10 +21,14 @@ for the port of its random streams; asking for one raises and says so.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
+import torch
+
+from repro_torch.core.state import drop, lane, lift
 from repro_torch.sched.base import base_pass
 from repro_torch.sched.commit import finalize
+from repro_torch.sched.table import DispatchTable, TableForm
 
 #: reference schedulers that need the RNG port (a later slice)
 NOT_PORTED = ("random", "simulated_annealing", "tabu_search", "genetic")
@@ -31,28 +42,48 @@ class SchedulerEntry:
     entry: Callable                   # (state, cfg, rng) -> state
     dynamic_bestfit: bool = False     # finaliser re-scores vs running tally
     doc: str = ""
+    table_form: Optional[TableForm] = None
+    #                                 # switchless/fused dispatch form; None
+    #                                 # = opaque (fleets propose per lane)
 
 
 _REGISTRY: Dict[str, SchedulerEntry] = {}
+#: live view: scheduler name -> its table form (None = opaque)
+TABLE_FORMS: Dict[str, Optional[TableForm]] = {}
+
+
+def propose_lanes(proposers, state, cfg, rng, idx, valid, base_ok, scores
+                  ) -> torch.Tensor:
+    """(B, P, N) preferences of a lane-batched state, lane b proposed by
+    ``proposers[b]`` on its own views (one lane: no copy)."""
+    prefs = [propose(lane(state, b), cfg, rng, idx[b], valid[b], base_ok[b],
+                     scores[b]) for b, propose in enumerate(proposers)]
+    return prefs[0][None] if len(prefs) == 1 else torch.stack(prefs)
 
 
 def register_scheduler(name: str, propose: Callable, *,
                        dynamic_bestfit: bool = False,
                        doc: Optional[str] = None,
+                       table_form: Optional[TableForm] = None,
                        overwrite: bool = False) -> Callable:
     """Register a proposal fn under ``name``; returns the derived scheduler.
 
     ``dynamic_bestfit=True`` makes the finaliser re-score candidates against
     the running reservation tally (best-fit decreasing) instead of the
-    static proposal.
+    static proposal. ``table_form`` registers the scheduler's
+    proposal-table form for switchless fleet dispatch; its transform must
+    give the same preferences as ``propose``.
     """
     if not overwrite and name in _REGISTRY:
         raise ValueError(f"scheduler {name!r} already registered "
                          "(pass overwrite=True to replace it)")
 
     def scheduler(state, cfg, rng=None):
+        if state.window.dim() == 0:
+            return drop(scheduler(lift(state), cfg, rng))
         idx, valid, base_ok, scores = base_pass(state, cfg)
-        pref = propose(state, cfg, rng, idx, valid, base_ok, scores)
+        pref = propose_lanes([propose] * idx.shape[0], state, cfg, rng, idx,
+                             valid, base_ok, scores)
         return finalize(state, cfg, idx, valid, base_ok, pref,
                         dynamic_bestfit=dynamic_bestfit)
 
@@ -61,8 +92,30 @@ def register_scheduler(name: str, propose: Callable, *,
     _REGISTRY[name] = SchedulerEntry(
         name=name, propose=propose, entry=scheduler,
         dynamic_bestfit=dynamic_bestfit,
-        doc=doc if doc is not None else (propose.__doc__ or "").strip())
+        doc=doc if doc is not None else (propose.__doc__ or "").strip(),
+        table_form=table_form)
+    TABLE_FORMS[name] = table_form
     return scheduler
+
+
+def unregister_scheduler(name: str) -> None:
+    """Remove a registered scheduler (plugin teardown)."""
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown scheduler {name!r}; have {list(_REGISTRY)}")
+    del _REGISTRY[name]
+    del TABLE_FORMS[name]
+
+
+def snapshot_dispatch(scheduler_names: Tuple[str, ...]) -> DispatchTable:
+    """Freeze the registry rows ``scheduler_names`` into an immutable
+    :class:`DispatchTable` — the fleet's dispatch contract, taken once at
+    fleet build time, so later registrations cannot retarget it."""
+    entries = [get_entry(n) for n in scheduler_names]
+    return DispatchTable(
+        names=tuple(scheduler_names),
+        proposers=tuple(e.propose for e in entries),
+        dynamic=tuple(e.dynamic_bestfit for e in entries),
+        forms=tuple(e.table_form for e in entries))
 
 
 def get_entry(name: str) -> SchedulerEntry:

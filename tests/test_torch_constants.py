@@ -1,7 +1,9 @@
 """Every constant and host-side module the port re-declares equals the
 reference's: task states, usage columns, priority classes, event kinds,
 constraint ops, the SimConfig dataclass (fields and defaults), the cell-A
-config, and the numpy event packing, trace generation and GCD parsing."""
+config, the numpy event packing, trace generation and GCD parsing, and the
+scenario fleet's proposal-family codes, perturbation salts, ScenarioSpec
+(fields, defaults, validation) and knob labels."""
 import dataclasses
 
 import numpy as np
@@ -13,7 +15,10 @@ import repro.core.events as ref_events
 import repro.core.state as ref_state
 import repro.core.stats as ref_stats
 import repro.core.tracegen as ref_tracegen
+import repro.kernels.placement_commit.kernel as ref_pc_kernel
 import repro.kernels.window_stats.ref as ref_ws
+import repro.scenarios.perturb as ref_perturb
+import repro.scenarios.spec as ref_spec
 from repro.configs import agocs_cell_a as ref_cell_a
 from repro.configs.agocs_full_cell import MONTH_WINDOWS as REF_MONTH
 from repro.parsers import GCDParser as RefGCDParser
@@ -23,7 +28,10 @@ import repro_torch.core.events as events
 import repro_torch.core.state as state
 import repro_torch.core.stats as stats
 import repro_torch.core.tracegen as tracegen
+import repro_torch.kernels.placement_commit as pc
 import repro_torch.kernels.window_stats.ref as ws
+import repro_torch.scenarios.perturb as perturb
+import repro_torch.scenarios.spec as spec
 from repro_torch.configs import agocs_cell_a, get_sim_config
 from repro_torch.parsers import GCDParser, default_start_us
 
@@ -41,6 +49,10 @@ NAMES = [
                           "GCD_MACHINE_UPDATE")),
     (tracegen, ref_tracegen, ("SHIFT_US", "USAGE_PERIOD_US",
                               "PAPER_CELL_MACHINES", "PAPER_JOBS_PER_HOUR")),
+    (pc, ref_pc_kernel, ("FAM_EXTERNAL", "FAM_SCORES", "FAM_NODE_ORDER")),
+    (perturb, ref_perturb, ("_SALT_OUTAGE", "_SALT_THIN", "_SALT_SURGE",
+                            "_SALT_STORM", "_SALT_INJECT", "_SALT_LIFETIME")),
+    (spec, ref_spec, ("_KNOB_LABELS", "_FIELD_BY_LABEL")),
 ]
 
 
@@ -123,3 +135,28 @@ def test_packing_tracegen_and_parse_equal(tmp_path):
     for f, x in zip(events.EventWindow._fields, tw):
         assert x.numpy().dtype == getattr(
             ref_events.stack_windows(ref), f).dtype, f
+
+
+def test_scenario_spec_fields_defaults_and_knobs_equal():
+    mine = [(f.name, f.default)
+            for f in dataclasses.fields(spec.ScenarioSpec)]
+    ref = [(f.name, f.default)
+           for f in dataclasses.fields(ref_spec.ScenarioSpec)]
+    assert mine == ref
+    assert spec.ScenarioKnobs._fields == ref_spec.ScenarioKnobs._fields
+    probe = dict(name="p", node_outage_frac=0.25, capacity_scale=0.5,
+                 surge_priority=3, evict_storm_frac=0.125)
+    assert spec.ScenarioSpec(**probe).describe() == \
+        ref_spec.ScenarioSpec(**probe).describe()
+    assert spec.ScenarioSpec(name="p").is_identity()
+
+
+@pytest.mark.parametrize("bad", [dict(node_outage_frac=1.5),
+                                 dict(capacity_scale=0.0),
+                                 dict(surge_priority=12),
+                                 dict(scheduler="no_such_scheduler")])
+def test_scenario_spec_validation_equal(bad):
+    with pytest.raises(ValueError):
+        ref_spec.ScenarioSpec(**bad)
+    with pytest.raises(ValueError):
+        spec.ScenarioSpec(**bad)

@@ -77,8 +77,8 @@ def test_off_grid_inputs():
 def test_cuda_wrapper_refuses_cpu_tensors():
     """The kernel wrapper launches only on CUDA tensors; the CPU path goes
     through the plain version by dispatch, never by a fallback."""
-    args = [torch.from_numpy(a) for a in _inputs(3, 8, 8)]
-    req, cons, total, reserved, attrs, _ = args
+    args = [torch.from_numpy(a)[None] for a in _inputs(3, 8, 8)]
+    req, cons, total, reserved, attrs, _ = args     # one lane
     with pytest.raises(ValueError, match="CUDA"):
         cm_ops.constraint_match_cuda(req, cons, total, reserved, attrs)
     assert cm_ops.constraint_match_cuda.launches == 0

@@ -44,6 +44,8 @@ def test_port_imports_with_jax_and_reference_blocked():
             "sys.modules['repro'] = None\n"
             "import repro_torch, repro_torch.core.engine, "
             "repro_torch.core.pipeline, repro_torch.launch.simulate, "
+            "repro_torch.launch.whatif, repro_torch.scenarios, "
+            "repro_torch.scenarios.batch, repro_torch.sched.table, "
             "repro_torch.kernels._build\n"
             "assert 'jax' not in [m.split('.')[0] for m, v in "
             "sys.modules.items() if v is not None]\n"

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain versions, on the card, at shapes
-that are not tile multiples and with more than one lane; and the engine on
-the card against the CPU path. Skipped without a CUDA device; on the card
+that are not tile multiples and with more than one lane (kernel D with mixed
+families and per-lane modes, kernel B's per-lane flag, kernel A's lane
+axis); and the engine and the scenario fleet (both dispatch paths) on the
+card against the CPU path. Skipped without a CUDA device; on the card
 (where JAX, which tests/conftest.py imports, need not be installed):
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
@@ -44,26 +46,31 @@ def _g(r, lo, hi, shape):
                             .astype(np.float32))
 
 
-@pytest.mark.parametrize("P,N", [(1, 1), (7, 129), (130, 300)])
-def test_constraint_match(dev, P, N):
-    r = np.random.default_rng(P + N)
+@pytest.mark.parametrize("B,P,N", [(1, 1, 1), (1, 7, 129), (1, 130, 300),
+                                   (3, 9, 140)])
+def test_constraint_match(dev, B, P, N):
+    r = np.random.default_rng(B + P + N)
     C, K = 6, 16
     cons = torch.from_numpy(np.stack(
-        [r.integers(-2, K + 2, (P, C)), r.integers(0, 6, (P, C)),
-         r.integers(0, 4, (P, C))], -1).astype(np.int32))
+        [r.integers(-2, K + 2, (B, P, C)), r.integers(0, 6, (B, P, C)),
+         r.integers(0, 4, (B, P, C))], -1).astype(np.int32))
     args = [x.to(dev) for x in (
-        _g(r, 1, 48, (P, 3)), cons, _g(r, 16, 256, (N, 3)),
-        _g(r, 0, 160, (N, 3)),
-        torch.from_numpy(r.integers(0, 4, (N, K)).astype(np.int32)),
-        torch.from_numpy(r.random(N) < 0.8))]
+        _g(r, 1, 48, (B, P, 3)), cons, _g(r, 16, 256, (B, N, 3)),
+        _g(r, 0, 160, (B, N, 3)),
+        torch.from_numpy(r.integers(0, 4, (B, N, K)).astype(np.int32)),
+        torch.from_numpy(r.random((B, N)) < 0.8))]
+    if B == 1:
+        args = [x[0] for x in args]
     before = cm_ops.constraint_match_cuda.launches
     got = cm_ops.constraint_match(*args)
     assert cm_ops.constraint_match_cuda.launches == before + 1
-    want = constraint_match_ref(*args)
-    assert torch.equal(got, want)
+    for b in range(B):
+        lane = args if B == 1 else [x[b] for x in args]
+        want = constraint_match_ref(*lane)
+        assert torch.equal(got if B == 1 else got[b], want)
 
 
-@pytest.mark.parametrize("mode", ["static", "dynamic"])
+@pytest.mark.parametrize("mode", ["static", "dynamic", "both"])
 @pytest.mark.parametrize("B,P,N", [(1, 5, 7), (3, 64, 1500)])
 def test_placement_commit_lanes(dev, mode, B, P, N):
     r = np.random.default_rng(B * P + N)
@@ -75,12 +82,54 @@ def test_placement_commit_lanes(dev, mode, B, P, N):
            torch.where(active[..., None], total, -1.0),
            torch.clamp_min(total, 1e-6), _g(r, 0, 96, (B, N, 3))]
     ops = [x.to(dev) for x in ops]
-    node_of, tally = pc_ops.placement_commit_cuda(*ops, mode)
+    flags = torch.from_numpy(np.arange(B) % 2 == 0).to(dev)
+    if mode == "both":
+        ops[1] = ops[1][:1].contiguous()       # a lane-shared request matrix
+    node_of, tally = pc_ops.placement_commit_cuda(*ops, mode, flags)
     for b in range(B):
-        want_n, want_t = placement_commit_ref(*[x[b] for x in ops],
-                                              mode == "dynamic")
+        dyn = bool(flags[b]) if mode == "both" else mode == "dynamic"
+        want_n, want_t = placement_commit_ref(
+            *[x[b if x.shape[0] > 1 else 0] for x in ops], dyn)
         assert torch.equal(node_of[b], want_n)
         assert torch.equal(tally[b], want_t)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("dyn", [(False,) * 4, (True,) * 4,
+                                 (True, False, False, True)],
+                         ids=["static", "dynamic", "both"])
+@pytest.mark.parametrize("P,N", [(5, 7), (64, 1500)])
+def test_sched_commit_mixed_families(dev, P, N, dyn, shared):
+    """Kernel D: lanes of every family (scores, node order from a rotating
+    start, two external rows) against sched_pref_ref -> placement_commit_ref
+    per lane; with ``shared`` the lanes share total/denom/reserved0."""
+    r = np.random.default_rng(P + N)
+    fam = (pc_ops.FAM_SCORES, pc_ops.FAM_NODE_ORDER, pc_ops.FAM_EXTERNAL,
+           pc_ops.FAM_EXTERNAL)
+    ext_row = (0, 0, 1, 0)
+    B = len(fam)
+    total = _g(r, 16, 256, (B, N, 3))
+    active = torch.from_numpy(r.random((B, N)) < 0.8)
+    ok = torch.from_numpy(r.random((B, P, N)) < 0.7)
+    scores = torch.where(ok, _g(r, -256, 0, (B, P, N)), float("-inf"))
+    ops = [scores, ok, _g(r, 1, 64, (B, P, 3)),
+           torch.from_numpy(r.random((B, P)) < 0.85),
+           torch.where(active[..., None], total, -1.0),
+           torch.clamp_min(total, 1e-6), _g(r, 0, 96, (B, N, 3))]
+    if shared:
+        ops[4:] = [x[:1] for x in ops[4:]]
+    ops = [x.contiguous().to(dev) for x in ops]
+    ext = _g(r, -64, 64, (2, P, N)).to(dev)
+    start = torch.tensor([0, N // 3, 0, 0], dtype=torch.int32, device=dev)
+    before = pc_ops.sched_commit_cuda.launches
+    node_of, tally = pc_ops.sched_commit_fleet(
+        *ops, start, fam=fam, dynamic=dyn, ext=ext, ext_row=ext_row)
+    assert pc_ops.sched_commit_cuda.launches == before + 1
+    want_n, want_t = pc_ops.sched_commit_fleet(
+        *[x.cpu() for x in ops], start.cpu(), fam=fam, dynamic=dyn,
+        ext=ext.cpu(), ext_row=ext_row)
+    assert torch.equal(node_of.cpu(), want_n)
+    assert torch.equal(tally.cpu(), want_t)
 
 
 @pytest.mark.parametrize("B,T,N", [(1, 1000, 77), (2, 5000, 1100)])
@@ -157,6 +206,42 @@ def test_engine_on_card_matches_cpu(dev, scheduler, incremental):
         state, rows = engine.run_windows(init_state(cfg, d),
                                          window_to_torch(ws, d), cfg,
                                          get_scheduler(scheduler))
+        out[d.type] = (state_to_numpy(state),
+                       {k: v.cpu().numpy() for k, v in rows.items()})
+    (s_g, r_g), (s_c, r_c) = out["cuda"], out["cpu"]
+    for k in s_c:
+        np.testing.assert_array_equal(s_g[k], s_c[k], err_msg=k)
+    for k in r_c:
+        if k in ("util_balance_var", "reserved_balance_var"):
+            np.testing.assert_allclose(r_g[k], r_c[k], rtol=2.5e-7, err_msg=k)
+        else:
+            np.testing.assert_array_equal(r_g[k], r_c[k], err_msg=k)
+
+
+@pytest.mark.parametrize("dispatch", ["auto", "switch"])
+def test_fleet_on_card_matches_cpu(dev, dispatch):
+    from repro_torch.scenarios import ScenarioSpec, build_knobs
+    from repro_torch.scenarios import batch as batch_mod
+    from repro_torch.sched import snapshot_dispatch
+    cfg = dataclasses.replace(REDUCED_SIM, max_nodes=12, max_tasks=128,
+                              max_events_per_window=64, sched_batch=32,
+                              inject_slots=8, inject_task_slots=32,
+                              sched_dispatch=dispatch)
+    specs = [ScenarioSpec(name="g"),
+             ScenarioSpec(name="ff", scheduler="first_fit"),
+             ScenarioSpec(name="rr", scheduler="round_robin",
+                          arrival_rate=2.0),
+             ScenarioSpec(name="storm", evict_storm_frac=0.2,
+                          node_outage_frac=0.2)]
+    ws = _soup(cfg)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        knobs, names = build_knobs(specs, d)
+        state, rows = batch_mod.run_scenarios(
+            batch_mod.init_batched_state(cfg, len(specs), d),
+            window_to_torch(ws, d), knobs, cfg, names, 0, True,
+            snapshot_dispatch(names),
+            tuple(names.index(s.scheduler) for s in specs))
         out[d.type] = (state_to_numpy(state),
                        {k: v.cpu().numpy() for k, v in rows.items()})
     (s_g, r_g), (s_c, r_c) = out["cuda"], out["cpu"]

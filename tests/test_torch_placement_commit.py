@@ -72,11 +72,16 @@ def test_all_infeasible_row_picks_node_zero_and_places_nothing(dynamic):
 
 
 def test_traced_flag_is_refused():
+    """A per-lane flag must carry one entry per lane; anything but a bool
+    or a bool tensor, and an unknown kernel mode, is refused."""
     args = [torch.from_numpy(a) for a in _inputs(1, 4, 4)]
-    with pytest.raises(TypeError, match="scenario fleet"):
-        pc_ops.placement_commit(*args, torch.tensor(True))
-    with pytest.raises(ValueError, match="both"):
-        pc_ops.placement_commit_cuda(*[a[None] for a in args], "both")
+    lanes = [a[None].expand((3,) + a.shape) for a in args]
+    with pytest.raises(ValueError, match="per-lane"):
+        pc_ops.placement_commit(*lanes, torch.tensor([True, False]))
+    with pytest.raises(TypeError, match="bool"):
+        pc_ops.placement_commit(*args, 1)
+    with pytest.raises(ValueError, match="sideways"):
+        pc_ops.placement_commit_cuda(*[a[None] for a in args], "sideways")
 
 
 def _tied_state(seed, cfg_ref):
