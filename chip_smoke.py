@@ -5,7 +5,7 @@
 
 Phases, each printing its own lines:
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: the five CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
+  2. build: the six CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
      one process per source, seconds and ptxas register/shared-memory
      lines);
   3. each kernel against its plain PyTorch version on the card, at the
@@ -15,6 +15,9 @@ Phases, each printing its own lines:
      with its lane axis, placement_commit with a per-lane flag ('both'), and
      sched_commit with lanes of all three proposal families in modes
      static, dynamic and both, one operand shared by the lanes;
+     flash_attention at the serving shape of qwen3-4b (B=4, S=512, H=32,
+     D=128, bf16, causal; max abs err 2e-2) and in f32 at a ragged S,
+     causal and full (1e-5);
   4. the main path: ``Simulation`` with ``greedy`` over a synthetic GCD
      trace at cell A (12,500 nodes, 262,144 task slots, sched_batch 1,024)
      for 64 windows with one accounting resync, then ``first_fit`` for a
@@ -30,10 +33,24 @@ Phases, each printing its own lines:
      0 against a ``Simulation`` of the same windows, bitwise; a
      torch.profiler trace of 16 warm fleet windows; plus a small fleet on
      the card against the CPU, both dispatch paths;
-  6. kernel times at the main path's shapes (CUDA events, L2 flushed,
+  6. the serving path: qwen3-4b at full width (36 layers, d_model 2560,
+     vocab 151,936; f32 parameters from a torch.Generator seeded 0 on the
+     card, bf16 activations and cache), ``ServingEngine.generate`` on 4
+     prompts of 512 random tokens, 32 new tokens each, with
+     ``attention_impl="pallas"`` (kernel F in every layer of the prefill);
+     launch counts reset just before and read just after (F: 36); prefill
+     ms, decode ms per token, new tokens/s and peak memory; torch.profiler
+     traces of a prefill and of 8 decode steps; then the same parameters
+     and prompts with ``attention_impl="xla"``: greedy agreement of the
+     first token within 0.05 of the xla logits' maximum; the two impls'
+     prefill logit rows within 2e-2 relative L2 with f32 activations (in
+     bf16 each impl's rows lie ~2e-2 from the f32 rows, so the bf16
+     distances are printed beside them, not held to that bar);
+  7. kernel times at the main path's shapes (CUDA events, L2 flushed,
      median) beside the plain version, the library call where one exists,
-     and the bound; sched_commit (and constraint_match) at the fleet's;
-  7. a ``kernels:`` status line and the JSON kernel table.
+     and the bound; sched_commit (and constraint_match) at the fleet's,
+     flash_attention at the serving path's;
+  8. a ``kernels:`` status line and the JSON kernel table.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before it; without a CUDA device, or without the repository
@@ -56,6 +73,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 PROFILE_WINDOWS = 16          # traced windows of the main path (phase 4)
 FLEET_WINDOWS = 32            # windows of the cell-A fleet (phase 5)
 FLEET_B = 8                   # lanes of the cell-A fleet
@@ -64,6 +82,9 @@ MAIN_PATH = ("constraint_match", "placement_commit", "window_stats",
              "segment_usage")
 FLEET_PATH = ("constraint_match", "window_stats", "sched_commit",
               "segment_usage")
+SERVE_PATH = ("flash_attention",)
+SERVE_ARCH = "qwen3-4b"       # the served model, at full width
+SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
 ULP_RTOL = 2.5e-7             # "within 2 ulp" for the variances
 
 
@@ -80,8 +101,8 @@ def _propose_pack_left(state, cfg, rng, idx, valid, base_ok, scores):
     return state.node_reserved.sum(-1)[None, :].expand(base_ok.shape)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -113,20 +134,19 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def profile_run(torch, make_driver, label: str, n_windows: int) -> None:
-    """torch.profiler over a warm run of the driver ``make_driver()``
-    builds: the top device time by name and the summed device time over
-    the wall time."""
+def profile_call(torch, fn, label: str) -> dict:
+    """torch.profiler over one call of ``fn``: the top device time by name
+    and the summed device time over the wall time. Returns the device
+    microseconds and launch count by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    make_driver().run()                     # warm-up
-    driver = make_driver()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        driver.run()
+        fn()
+        torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
-    rows = []
+    rows = {}
     for e in prof.key_averages():
         # device-side events only: a CPU op's row repeats its kernels' time
         if e.device_type != DeviceType.CUDA:
@@ -135,15 +155,22 @@ def profile_run(torch, make_driver, label: str, n_windows: int) -> None:
         if dev_us is None:
             dev_us = e.self_cuda_time_total
         if dev_us > 0:
-            rows.append((dev_us, e.count, e.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    print(f"profile {label}: {n_windows} windows, wall "
-          f"{wall_us / 1e3:.3f} ms, "
+            rows[e.key] = (dev_us, e.count)
+    busy = sum(r[0] for r in rows.values())
+    print(f"profile {label}, wall {wall_us / 1e3:.3f} ms, "
           f"summed device time {busy / 1e3:.3f} ms "
           f"(busy share {busy / wall_us:.3f})")
-    for dev_us, count, key in rows[:15]:
+    for key, (dev_us, count) in sorted(rows.items(),
+                                       key=lambda kv: -kv[1][0])[:15]:
         print(f"  {dev_us / 1e3:10.3f} ms  x{count:<6d} {key[:90]}")
+    return rows
+
+
+def profile_run(torch, make_driver, label: str, n_windows: int) -> None:
+    """torch.profiler over a warm run of the driver ``make_driver()``
+    builds."""
+    make_driver().run()                     # warm-up
+    profile_call(torch, make_driver().run, f"{label}: {n_windows} windows")
 
 
 def main(argv=None) -> int:
@@ -165,6 +192,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.constraint_match import ops as cm_ops
     from repro_torch.kernels.constraint_match.ref import constraint_match_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.placement_commit import ops as pc_ops
     from repro_torch.kernels.placement_commit.ref import placement_commit_ref
     from repro_torch.kernels.segment_usage import ops as su_ops
@@ -179,6 +208,9 @@ def main(argv=None) -> int:
     from repro_torch.parsers import GCDParser, default_start_us
     from repro_torch.scenarios import ScenarioFleet, ScenarioSpec
     from repro_torch.sched import TableForm, register_scheduler
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lm
+    from repro_torch.serve.engine import ServingEngine
 
     # ---- 1. device ----------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -211,7 +243,8 @@ def main(argv=None) -> int:
                 "placement_commit": pc_ops.placement_commit_cuda,
                 "window_stats": ws_ops.window_stats_cuda,
                 "sched_commit": pc_ops.sched_commit_cuda,
-                "segment_usage": su_ops.segment_usage_cuda}
+                "segment_usage": su_ops.segment_usage_cuda,
+                "flash_attention": fa_ops.flash_attention_cuda}
     results = {name: {} for name in counters}
 
     # ---- 3. kernels against their plain versions, cell-A shapes -------
@@ -377,6 +410,36 @@ def main(argv=None) -> int:
               f": node_of exact, tally bitwise, "
               f"{int((got[0] >= 0).sum())} placed")
     results["sched_commit"]["max_abs_err"] = d_err
+
+    # F: flash_attention at the serving path's shape (qwen3-4b prefill:
+    # B=4, S=512, H=32, D=128, bf16, causal), then in f32 at a ragged S
+    scfg = get_config(SERVE_ARCH)
+    f_shape = (SERVE_B, SERVE_PROMPT, scfg.n_heads, scfg.resolved_head_dim)
+    fg = torch.Generator(device=dev).manual_seed(args.seed)
+    fq, fk, fv = (torch.randn(f_shape, generator=fg, device=dev,
+                              dtype=torch.bfloat16) for _ in range(3))
+    f_scale = 1.0 / scfg.resolved_head_dim ** 0.5
+    f_out = fa_ops.flash_attention(fq, fk, fv, causal=True, scale=f_scale)
+    f_want = attention_ref(fq, fk, fv, causal=True, scale=f_scale)
+    torch.cuda.synchronize()
+    assert f_out.dtype == torch.bfloat16 and f_out.shape == f_shape
+    f_err = float((f_out.float() - f_want.float()).abs().max())
+    assert f_err <= 2e-2, f"F bf16 causal: max abs err {f_err} > 2e-2"
+    results["flash_attention"]["max_abs_err"] = f_err
+    print(f"F flash_attention B={f_shape[0]} S={f_shape[1]} H={f_shape[2]} "
+          f"D={f_shape[3]} bf16 causal: max abs err {f_err:.3g} (<= 2e-2)")
+    for causal in (False, True):
+        xs = [torch.randn((2, 200, 8, 128), generator=fg, device=dev)
+              for _ in range(3)]
+        got = fa_ops.flash_attention(*xs, causal=causal)
+        want = attention_ref(*xs, causal=causal)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        assert err <= 1e-5, f"F f32 causal={causal}: max abs err {err}"
+        print(f"F flash_attention B=2 S=200 H=8 D=128 f32 "
+              f"{'causal' if causal else 'full'}: max abs err {err:.3g} "
+              "(<= 1e-5)")
+    del f_out, f_want, xs, got, want
 
     # ---- 4. the main path at cell A -----------------------------------
     tmp = tempfile.TemporaryDirectory()
@@ -580,7 +643,131 @@ def main(argv=None) -> int:
               f"windows, dispatch {dispatch}): card == plain CPU path "
               "(state and decisions exact, stats rtol 1e-5)")
 
-    # ---- 6. times at the main path's shapes ---------------------------
+    # ---- 6. the serving path: qwen3-4b at full width ------------------
+    serve_cfg = dataclasses.replace(scfg, attention_impl="pallas")
+    t0 = time.time()
+    params = lm.init_params(serve_cfg,
+                            torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    leaves = [t for pos in params["blocks"] for grp in pos.values()
+              for t in grp.values()] + [params["embed"],
+                                        params["final_norm"]]
+    n_par = sum(t.numel() for t in leaves)
+    print(f"serve: {serve_cfg.name} at full width: {serve_cfg.n_layers} "
+          f"layers, d_model {serve_cfg.d_model}, heads {serve_cfg.n_heads}/"
+          f"{serve_cfg.n_kv_heads} x {serve_cfg.resolved_head_dim}, d_ff "
+          f"{serve_cfg.d_ff}, vocab {serve_cfg.vocab_size} (padded "
+          f"{serve_cfg.padded_vocab}); {n_par / 1e9:.4f} B parameters, "
+          f"{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.3f} "
+          f"GB {serve_cfg.param_dtype}, initialised on the card in "
+          f"{time.time() - t0:.1f}s")
+    prompts = torch.randint(
+        0, serve_cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
+        generator=torch.Generator(device=dev).manual_seed(args.seed + 1),
+        device=dev, dtype=torch.int32)
+    max_seq = SERVE_PROMPT + SERVE_GEN + 1
+
+    def timed_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.time() - t0) * 1e3, out
+
+    engine = ServingEngine(serve_cfg, params, max_seq)
+    engine.generate(prompts, 2)        # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    gen_ms, out_k = timed_ms(lambda: engine.generate(prompts, SERVE_GEN))
+    launches_serve = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"launches (serve run): {launches_serve}")
+    assert launches_serve["flash_attention"] == serve_cfg.n_layers, \
+        launches_serve
+    assert all(launches_serve[k] > 0 for k in SERVE_PATH), launches_serve
+    assert out_k.shape == (SERVE_B, SERVE_GEN) and out_k.dtype == torch.int32
+    assert bool(((out_k >= 0) & (out_k < serve_cfg.vocab_size)).all())
+    pre_ms = float(np.median([timed_ms(lambda: engine.generate(prompts, 1))[0]
+                              for _ in range(3)]))
+    full_ms = float(np.median([gen_ms] + [
+        timed_ms(lambda: engine.generate(prompts, SERVE_GEN))[0]
+        for _ in range(2)]))
+    dec_ms = (full_ms - pre_ms) / (SERVE_GEN - 1)
+    print(f"serve pallas: {SERVE_B} prompts x {SERVE_PROMPT} tokens, "
+          f"{SERVE_GEN} new tokens each: generate {full_ms:.3f} ms "
+          f"(median of 3) [{smi}]")
+    print(f"serve prefill: {pre_ms:.3f} ms for {SERVE_B} x {SERVE_PROMPT} "
+          f"tokens (generate of 1 token, median of 3) [{smi}]")
+    print(f"serve decode: {dec_ms:.3f} ms per token step (batch "
+          f"{SERVE_B}) [{smi}]")
+    print(f"serve new tokens/s: {SERVE_B * SERVE_GEN / full_ms * 1e3:.2f} "
+          f"end to end, {SERVE_B / dec_ms * 1e3:.2f} in decode [{smi}]")
+    print(f"serve peak memory: {peak / 2 ** 30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated) [{smi}]")
+    print(f"serve flash_attention launches: "
+          f"{launches_serve['flash_attention']} in one prefill "
+          f"({serve_cfg.n_layers} layers) [{smi}]")
+    prof_pre = profile_call(torch, lambda: engine.generate(prompts, 1),
+                            f"serve prefill (B={SERVE_B}, S={SERVE_PROMPT})")
+    prof_dec = profile_call(torch, lambda: engine.generate(prompts, 9),
+                            "serve prefill + 8 decode steps")
+    per_step = {k: ((v[0] - prof_pre.get(k, (0, 0))[0]) / 8,
+                    (v[1] - prof_pre.get(k, (0, 0))[1]) / 8)
+                for k, v in prof_dec.items()}
+    print(f"serve one decode step, device time by kernel (the two "
+          f"profiles' difference over 8): "
+          f"{sum(v[0] for v in per_step.values()) / 1e3:.3f} ms")
+    for key, (dev_us, count) in sorted(per_step.items(),
+                                       key=lambda kv: -kv[1][0])[:10]:
+        print(f"  {dev_us / 1e3:10.3f} ms  x{count:<6.4g} {key[:90]}")
+    del engine
+
+    # the same parameters and prompts through the plain einsum attention
+    xla_cfg = dataclasses.replace(serve_cfg, attention_impl="xla")
+    engine_x = ServingEngine(xla_cfg, params, max_seq)
+    engine_x.generate(prompts, 2)
+    xla_ms, out_x = timed_ms(lambda: engine_x.generate(prompts, SERVE_GEN))
+    del engine_x
+    print(f"serve xla: generate {xla_ms:.3f} ms (one run) [{smi}]")
+    V = serve_cfg.vocab_size
+    rows = {}
+    with torch.inference_mode():
+        for dt in ("bfloat16", "float32"):
+            for c in (serve_cfg, xla_cfg):
+                c = dataclasses.replace(c, dtype=dt)
+                rows[dt, c.attention_impl] = lm.prefill(
+                    params, c, prompts, max_seq)[0][:, 0, 0, :V].float()
+    for r in rows.values():
+        assert bool(torch.isfinite(r).all()), "non-finite logits"
+
+    def rel_l2(a, b):
+        return ((a - b).norm(dim=-1) / b.norm(dim=-1)).tolist()
+
+    logits_k, logits_x = rows["bfloat16", "pallas"], rows["bfloat16", "xla"]
+    first = out_k[:, 0].long()
+    gap = logits_x.max(-1).values - logits_x.gather(1, first[:, None])[:, 0]
+    rel32 = rel_l2(rows["float32", "pallas"], rows["float32", "xla"])
+    agree = int((out_k == out_x).sum())
+    print(f"serve check 1: xla logit at the kernel path's first token is "
+          f"{gap.tolist()} below its maximum (<= 0.05)")
+    print(f"serve check 2: prefill logits with f32 activations, relative L2 "
+          f"kernel vs xla {rel32} (< 2e-2)")
+    print(f"serve bf16 prefill logits, relative L2: kernel vs xla "
+          f"{rel_l2(logits_k, logits_x)}; kernel vs f32 "
+          f"{rel_l2(logits_k, rows['float32', 'pallas'])}; xla vs f32 "
+          f"{rel_l2(logits_x, rows['float32', 'pallas'])}")
+    print(f"serve tokens: kernel and xla paths agree on {agree} of "
+          f"{out_k.numel()}; first tokens == argmax of a prefill with the "
+          f"f32 weights cast at use: "
+          f"{bool((first == logits_k.argmax(-1)).all())}")
+    assert bool((gap <= 0.05).all()), gap
+    assert max(rel32) < 2e-2, rel32
+    del params, rows, logits_k, logits_x
+    torch.cuda.empty_cache()
+
+    # ---- 7. times at the main path's shapes ---------------------------
     W = args.windows
     # D at the fleet's shapes and lane layout: the bytes each lane must
     # read once (ok; scores only for static score-family lanes; ext rows of
@@ -657,14 +844,39 @@ def main(argv=None) -> int:
     print(f"time constraint_match (fleet B={Bf}, one launch): kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
           f"({b_by}) [{smi}]")
+    # F at the serving path's shape; the library yardstick is PyTorch's
+    # scaled_dot_product_attention on the same tensors (head-major views)
+    Bq, Sq, Hq, Dq = f_shape
+    ms = time_ms(torch, lambda: fa_ops.flash_attention(
+        fq, fk, fv, causal=True, scale=f_scale), 20)
+    plain_ms = time_ms(torch, lambda: attention_ref(
+        fq, fk, fv, causal=True, scale=f_scale), 5, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(torch, lambda: sdpa(
+        fq.transpose(1, 2), fk.transpose(1, 2), fv.transpose(1, 2),
+        is_causal=True, scale=f_scale), 20)
+    # bytes: q, k, v read once, o written once; operations: the causal
+    # pairs (S(S+1)/2 per head) times 2 products of D multiply-adds
+    b_ms, b_by = bound_ms(nbytes(fq, fk, fv) + fq.numel() * 2,
+                          4 * Bq * Hq * Dq * Sq * (Sq + 1) / 2,
+                          BF16_OPS_PER_S)
+    results["flash_attention"].update(ms=ms, plain_ms=plain_ms,
+                                      library_ms=lib_ms, bound_ms=b_ms,
+                                      bound_by=b_by)
+    print(f"time flash_attention (serve B={Bq} S={Sq} H={Hq} D={Dq} bf16 "
+          f"causal): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"{lib_ms:.4f} ms (scaled_dot_product_attention), launches per "
+          f"prefill {launches_serve['flash_attention']}, bound "
+          f"{b_ms:.4f} ms ({b_by}) [{smi}]")
 
-    # ---- 7. the kernel table ------------------------------------------
+    # ---- 8. the kernel table ------------------------------------------
     meta = {
         "constraint_match": ("src/repro/kernels/constraint_match/kernel.py:76",),
         "placement_commit": ("src/repro/kernels/placement_commit/kernel.py:121",),
         "window_stats": ("src/repro/kernels/window_stats/kernel.py:124",),
         "sched_commit": ("src/repro/kernels/placement_commit/kernel.py:434",),
         "segment_usage": ("src/repro/kernels/segment_usage/kernel.py:39",),
+        "flash_attention": ("src/repro/kernels/flash_attention/kernel.py:62",),
     }
     table = []
     for name in counters:
@@ -673,9 +885,11 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": meta[name][0],
-            "launches": launches[name] + launches_fleet[name],
+            "launches": (launches[name] + launches_fleet[name]
+                         + launches_serve[name]),
             "launches_by_path": {"simulate": launches[name],
-                                 "fleet": launches_fleet[name]},
+                                 "fleet": launches_fleet[name],
+                                 "serve": launches_serve[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

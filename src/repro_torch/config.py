@@ -1,7 +1,8 @@
-"""The simulator's configuration: a copy of the reference's ``SimConfig``.
+"""The configurations: copies of the reference's ``SimConfig`` and
+``ModelConfig``.
 
-Field for field and default for default the dataclass of ``repro.config``
-(tests hold the two equal), kept here so that the port imports nothing of
+Field for field and default for default the dataclasses of ``repro.config``
+(tests hold them equal), kept here so that the port imports nothing of
 the reference package. ``use_kernels`` and ``fused_window_stats`` stay
 fields so that configs compare equal, but the port does not read them: a
 CUDA tensor always takes the hand-written kernel and a CPU tensor its plain
@@ -9,7 +10,150 @@ PyTorch version.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
+from typing import Tuple
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+# ---------------------------------------------------------------------------
+# Model configuration (the LM substrate)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description for the layer-pattern compiler in
+    models/model.py. ``remat_policy``, ``chunked_ce``, ``ce_chunks``,
+    ``moe_impl``, ``pad_head_shard`` and ``bf16_weight_gather`` are read by
+    the reference's training and sharding paths only; the port's serving
+    path keeps them so that configs compare equal."""
+
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+
+    head_dim: int = 0                # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+
+    # --- MoE ---
+    n_experts: int = 0               # routed experts (0 = dense MLP)
+    moe_top_k: int = 0
+    moe_d_ff: int = 0                # per-expert hidden dim
+    n_shared_experts: int = 0        # qwen2-moe style always-on experts
+    shared_d_ff: int = 0             # hidden dim of each shared expert
+    moe_period: int = 1              # every `moe_period`-th layer is MoE
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01    # load-balancing aux loss
+
+    # --- SSM / hybrid ---
+    ssm_state: int = 0               # N (state size); 0 = no mamba layers
+    ssm_head_dim: int = 64           # P
+    ssm_expand: int = 2              # d_inner = expand * d_model
+    ssm_chunk: int = 128             # SSD chunk length
+    ssm_conv: int = 4                # causal conv width
+    attn_period: int = 0             # hybrid: 1 attn layer per `attn_period`
+    attn_offset: int = 0             # index of the attn layer inside a period
+
+    # --- modality frontends (stubs) ---
+    n_codebooks: int = 1             # musicgen: summed embeds, K heads
+    n_prefix: int = 0                # llava: patch embeddings prepended
+
+    # --- numerics / impl ---
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    attention_impl: str = "xla"      # xla | pallas (pallas: kernel F)
+    remat_policy: str = "full"       # none | minimal | full
+    chunked_ce: bool = False         # streaming-logsumexp CE over vocab chunks
+    ce_chunks: int = 8
+    moe_impl: str = "gspmd"          # gspmd | shard_map
+    pad_head_shard: bool = False
+    bf16_weight_gather: bool = False
+    prefill_microbatches: int = 1    # process the prompt batch in chunks
+    logits_softcap: float = 0.0
+
+    # ----- derived -----
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.resolved_head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.resolved_head_dim
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to a multiple of 256."""
+        return _round_up(self.vocab_size, 256)
+
+    def layer_pattern(self) -> Tuple[Tuple[str, str], ...]:
+        """Return the repeating ``(mixer, mlp)`` pattern.
+
+        The full stack is ``n_layers // len(pattern)`` repeats of this
+        pattern. Mixer in {attn, mamba}; mlp in {dense, moe, none}.
+        """
+        period = 1
+        if self.attn_period > 1:
+            period = self.attn_period
+        if self.n_experts and self.moe_period > 1:
+            period = max(period, self.moe_period)
+        if self.attn_period > 1 and self.n_experts and self.moe_period > 1:
+            period = math.lcm(self.attn_period, self.moe_period)
+        pattern = []
+        for i in range(period):
+            if self.ssm_state and self.attn_period == -1:
+                mixer = "mamba"                      # pure SSM
+            elif self.ssm_state and self.attn_period > 1:
+                mixer = ("attn" if (i % self.attn_period) == self.attn_offset
+                         else "mamba")
+            else:
+                mixer = "attn"
+            if self.d_ff == 0 and not self.n_experts:
+                mlp = "none"                          # mamba2-780m style
+            elif self.n_experts and (i % self.moe_period) == (
+                    self.moe_period - 1 if self.moe_period > 1 else 0):
+                mlp = "moe"
+            else:
+                mlp = "dense"
+            pattern.append((mixer, mlp))
+        assert self.n_layers % len(pattern) == 0, (
+            f"{self.name}: n_layers={self.n_layers} not divisible by "
+            f"pattern period {len(pattern)}")
+        return tuple(pattern)
+
+    @property
+    def n_repeats(self) -> int:
+        return self.n_layers // len(self.layer_pattern())
+
+    def has_attention(self) -> bool:
+        return any(m == "attn" for m, _ in self.layer_pattern())
+
+
+# ---------------------------------------------------------------------------
+# Simulator configuration
+# ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)

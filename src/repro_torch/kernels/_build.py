@@ -35,7 +35,10 @@ LIB_NAME = "librepro_torch_kernels.so"
 
 P = ctypes.c_void_p
 I = ctypes.c_int
-# C signatures: pointers and the stream as void*, sizes as int
+L = ctypes.c_longlong
+F = ctypes.c_float
+# C signatures: pointers and the stream as void*, sizes as int, strides as
+# long long, scales as float
 SIGNATURES: Dict[str, List] = {
     "constraint_match_launch": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     "placement_commit_launch": [P, P, P, P, P, P, P, P, P, P,
@@ -45,6 +48,8 @@ SIGNATURES: Dict[str, List] = {
     "window_stats_launch": [P, P, P, P, P, P, P, P, P, P, P, P, P,
                             I, I, I, I, I, I, P],
     "segment_usage_launch": [P, P, P, P, I, I, I, P],
+    "flash_attention_launch": [P, P, P, P, L, L, L, L, L, L, L, L, L,
+                               I, I, I, I, I, I, F, P],
 }
 
 _lock = threading.Lock()
@@ -136,13 +141,15 @@ def library() -> ctypes.CDLL:
 def launch(name: str, *args) -> None:
     """Call one C entry point on the current stream; raise on a CUDA error.
 
-    ``args`` are tensors (passed as device pointers), None (a null pointer)
-    and ints; the current stream of the first tensor's device is appended.
+    ``args`` are tensors (passed as device pointers), None (a null pointer),
+    floats and ints; the current stream of the first tensor's device is
+    appended.
     """
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     stream = torch.cuda.current_stream(dev).cuda_stream
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor)
-              else None if a is None else int(a) for a in args]
+              else a if a is None or isinstance(a, float) else int(a)
+              for a in args]
     with torch.cuda.device(dev):
         err = getattr(library(), name)(*c_args, stream)
     if err != 0:

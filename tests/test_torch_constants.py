@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import repro.config as ref_config
+import repro.configs as ref_configs
 import repro.core.events as ref_events
 import repro.core.state as ref_state
 import repro.core.stats as ref_stats
@@ -24,6 +25,7 @@ from repro.configs.agocs_full_cell import MONTH_WINDOWS as REF_MONTH
 from repro.parsers import GCDParser as RefGCDParser
 from repro.parsers import default_start_us as ref_start_us
 import repro_torch.config as config
+import repro_torch.configs as configs
 import repro_torch.core.events as events
 import repro_torch.core.state as state
 import repro_torch.core.stats as stats
@@ -160,3 +162,34 @@ def test_scenario_spec_validation_equal(bad):
         ref_spec.ScenarioSpec(**bad)
     with pytest.raises(ValueError):
         spec.ScenarioSpec(**bad)
+
+
+def test_modelconfig_fields_and_defaults_equal():
+    mine = [(f.name, f.default)
+            for f in dataclasses.fields(config.ModelConfig)]
+    ref = [(f.name, f.default)
+           for f in dataclasses.fields(ref_config.ModelConfig)]
+    assert mine == ref
+    assert config._round_up(151_936, 256) == ref_config._round_up(
+        151_936, 256) == 152_064
+
+
+def test_arch_ids_equal():
+    assert configs.ARCH_IDS == ref_configs.ARCH_IDS
+    with pytest.raises(KeyError):
+        configs.get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
+@pytest.mark.parametrize("shrink", [False, True], ids=["full", "reduced"])
+def test_arch_configs_equal(arch, shrink):
+    mine, ref = configs.get_config(arch), ref_configs.get_config(arch)
+    if shrink:
+        mine, ref = configs.reduced(mine), ref_configs.reduced(ref)
+    assert type(mine) is config.ModelConfig
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    for prop in ("resolved_head_dim", "q_dim", "kv_dim", "d_inner",
+                 "ssm_heads", "padded_vocab", "n_repeats"):
+        assert getattr(mine, prop) == getattr(ref, prop), prop
+    assert mine.layer_pattern() == ref.layer_pattern()
+    assert mine.has_attention() == ref.has_attention()

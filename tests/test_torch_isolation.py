@@ -46,7 +46,10 @@ def test_port_imports_with_jax_and_reference_blocked():
             "repro_torch.core.pipeline, repro_torch.launch.simulate, "
             "repro_torch.launch.whatif, repro_torch.scenarios, "
             "repro_torch.scenarios.batch, repro_torch.sched.table, "
-            "repro_torch.kernels._build\n"
+            "repro_torch.kernels._build, repro_torch.configs, "
+            "repro_torch.models.model, repro_torch.serve.engine, "
+            "repro_torch.launch.serve, "
+            "repro_torch.kernels.flash_attention.ops\n"
             "assert 'jax' not in [m.split('.')[0] for m, v in "
             "sys.modules.items() if v is not None]\n"
             "print('ok')\n")

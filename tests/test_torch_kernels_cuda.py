@@ -1,14 +1,17 @@
 """The CUDA kernels against their plain versions, on the card, at shapes
 that are not tile multiples and with more than one lane (kernel D with mixed
 families and per-lane modes, kernel B's per-lane flag, kernel A's lane
-axis); and the engine and the scenario fleet (both dispatch paths) on the
+axis; kernel F in f32 and bf16, causal and full, head dims 16-128, S a
+multiple of the tile or not, strided inputs); the engine and the scenario
+fleet (both dispatch paths), and the LM serving path with kernel F, on the
 card against the CPU path. Skipped without a CUDA device; on the card
 (where JAX, which tests/conftest.py imports, need not be installed):
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
 Bar: integers exact, grid-data sums and scores bitwise, variances within
-rtol 2.5e-7.
+rtol 2.5e-7; kernel F within 1e-5 (f32) and 2e-2 (bf16) of its plain
+version, the reference's own attention bar.
 """
 import dataclasses
 
@@ -22,6 +25,8 @@ from repro_torch.core.events import (EventKind, HostEvent, pack_window,
                                      stack_windows, window_to_torch)
 from repro_torch.core.state import init_state, state_to_numpy
 from repro_torch.kernels.constraint_match import ops as cm_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.constraint_match.ref import constraint_match_ref
 from repro_torch.kernels.placement_commit import ops as pc_ops
 from repro_torch.kernels.placement_commit.ref import placement_commit_ref
@@ -252,3 +257,82 @@ def test_fleet_on_card_matches_cpu(dev, dispatch):
             np.testing.assert_allclose(r_g[k], r_c[k], rtol=2.5e-7, err_msg=k)
         else:
             np.testing.assert_array_equal(r_g[k], r_c[k], err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,D", [(2, 128, 3, 32), (1, 200, 2, 64),
+                                     (2, 256, 4, 128), (1, 77, 5, 128),
+                                     (1, 1, 1, 16)])
+def test_flash_attention(dev, B, S, H, D, causal, dtype):
+    g = torch.Generator(device=dev).manual_seed(B * S + H * D)
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev,
+                           dtype=dtype) for _ in range(3))
+    before = fa_ops.flash_attention_cuda.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    assert fa_ops.flash_attention_cuda.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, S, H, D)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, err
+
+
+def test_flash_attention_strided_inputs(dev):
+    """q, k, v as views of one fused (B, S, 3, H, D) tensor and a
+    head-major layout: the kernel reads them by strides."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    qkv = torch.randn((2, 130, 3, 4, 64), generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    vt = torch.randn((2, 4, 130, 64), generator=g, device=dev,
+                     dtype=torch.bfloat16).transpose(1, 2)
+    for vv in (v, vt):
+        got = fa_ops.flash_attention(q, k, vv, causal=True, scale=0.11)
+        want = attention_ref(q, k, vv, causal=True, scale=0.11)
+        torch.cuda.synchronize()
+        assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+def test_flash_attention_refuses_what_it_does_not_take(dev):
+    q = torch.zeros((1, 8, 2, 160), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 32), device=dev)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        fa_ops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros((1, 8, 2, 64), device=dev)[..., ::2]
+        fa_ops.flash_attention(t, t, t)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_serving_on_card_matches_cpu(dev, impl):
+    """qwen3-4b reduced to 2 layers (f32 activations, bf16 cache): the
+    card's tokens equal the CPU path's, and the pallas impl launches kernel
+    F once per layer of the prefill."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model
+    from repro_torch.serve.engine import ServingEngine
+    cfg = dataclasses.replace(reduced(get_config("qwen3-4b")), n_layers=2,
+                              attention_impl=impl)
+    params = model.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 130),
+                         generator=torch.Generator().manual_seed(1))
+    before = fa_ops.flash_attention_cuda.launches
+    got = ServingEngine(cfg, _to(params, dev), 140).generate(toks.to(dev), 6)
+    launched = fa_ops.flash_attention_cuda.launches - before
+    assert launched == (cfg.n_layers if impl == "pallas" else 0)
+    want = ServingEngine(cfg, params, 140).generate(toks, 6)
+    assert torch.equal(got.cpu(), want), (got, want)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
