@@ -5,7 +5,7 @@
 
 Phases, each printing its own lines:
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: the six CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
+  2. build: the seven CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
      one process per source, seconds and ptxas register/shared-memory
      lines);
   3. each kernel against its plain PyTorch version on the card, at the
@@ -17,7 +17,10 @@ Phases, each printing its own lines:
      static, dynamic and both, one operand shared by the lanes;
      flash_attention at the serving shape of qwen3-4b (B=4, S=512, H=32,
      D=128, bf16, causal; max abs err 2e-2) and in f32 at a ragged S,
-     causal and full (1e-5);
+     causal and full (1e-5); fused_ce at qwen3-4b's training shape
+     (T=2,048, d=2,560, Vp=152,064, V=151,936, bf16, one label in seven
+     ignored; per-token nll and lse within 2e-3) and in f32 at a ragged T
+     with V < Vp (1e-4);
   4. the main path: ``Simulation`` with ``greedy`` over a synthetic GCD
      trace at cell A (12,500 nodes, 262,144 task slots, sched_batch 1,024)
      for 64 windows with one accounting resync, then ``first_fit`` for a
@@ -46,11 +49,37 @@ Phases, each printing its own lines:
      prefill logit rows within 2e-2 relative L2 with f32 activations (in
      bf16 each impl's rows lie ~2e-2 from the f32 rows, so the bf16
      distances are printed beside them, not held to that bar);
-  7. kernel times at the main path's shapes (CUDA events, L2 flushed,
+  7. the training path: the serving phase's memory released, then
+     qwen3-4b at full width (the same widths and depth; f32 parameters
+     from a torch.Generator seeded 0 on the card, AdamW's f32 moments,
+     bf16 activations) with ``chunked_ce=True`` and the reference's
+     training attention (``attention_impl="xla"``, full remat), on
+     ``SyntheticLM`` batches of 4 x 512 tokens (seed 0), through
+     ``train.step.make_train_step`` as ``FaultTolerantRunner.run`` calls
+     it: the first batch's loss and its gradient with respect to the final
+     hidden states through kernel G against the plain chunked loss on the
+     card (loss within 1e-3, gradient within 1e-2 of its largest value);
+     one warm-up step and three timed steps, kernel G's launch count reset
+     just before and read just after (3); finite losses; step ms,
+     tokens/s, peak memory; a torch.profiler trace of one step (device
+     time by kernel, G's share, busy share); then the training CLI's
+     configuration at reduced width through ``FaultTolerantRunner`` with a
+     checkpoint directory in a tempdir, once uninterrupted and once with
+     a crash injected at step 4: it must recover, and its losses must
+     match within 1e-5 (the largest difference, and whether the two are
+     bitwise, printed);
+  8. kernel times at the main path's shapes (CUDA events, L2 flushed,
      median) beside the plain version, the library call where one exists,
      and the bound; sched_commit (and constraint_match) at the fleet's,
-     flash_attention at the serving path's;
-  8. a ``kernels:`` status line and the JSON kernel table.
+     flash_attention at the serving path's, fused_ce at the training
+     path's (the library yardstick there is two calls: ``linear`` and
+     ``cross_entropy``);
+  9. a ``kernels:`` status line and the JSON kernel table (seven
+     kernels, launches by path).
+
+The seven CUDA kernels are built at first use from every
+``src/repro_torch/csrc/*.cu`` (one nvcc per source, all started together)
+into the git-ignored ``build/kernels/<hash>/``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before it; without a CUDA device, or without the repository
@@ -60,6 +89,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import sys
 import tempfile
@@ -83,8 +113,22 @@ MAIN_PATH = ("constraint_match", "placement_commit", "window_stats",
 FLEET_PATH = ("constraint_match", "window_stats", "sched_commit",
               "segment_usage")
 SERVE_PATH = ("flash_attention",)
+TRAIN_PATH = ("fused_ce",)
 SERVE_ARCH = "qwen3-4b"       # the served model, at full width
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
+TRAIN_ARCH = "qwen3-4b"       # the trained model, at full width
+TRAIN_B, TRAIN_SEQ = 4, 512   # 2,048 tokens a step
+TRAIN_TIMED = 3               # timed steps after one warm-up step
+# device kernels of a train step by name, first match wins
+TRAIN_CATEGORIES = (
+    ("G fused_ce", ("fused_ce",)),
+    ("f32 GEMMs (SIMT: attention products, G's backward recompute)",
+     ("f32f32", "sgemm", "gemmSN", "gemv")),
+    ("bf16 GEMMs (projections, MLP, their gradients)", ("nvjet", "gemm")),
+    ("copies and casts", ("copy", "Copy", "Memset", "Memcpy")),
+    ("elementwise and reductions (norms, RoPE, softmax, AdamW)",
+     ("elementwise", "reduce", "Reduce", "softmax", "Softmax")),
+)
 ULP_RTOL = 2.5e-7             # "within 2 ulp" for the variances
 
 
@@ -194,6 +238,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.constraint_match.ref import constraint_match_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.fused_ce import ops as ce_ops
+    from repro_torch.kernels.fused_ce.ref import fused_ce_ref
     from repro_torch.kernels.placement_commit import ops as pc_ops
     from repro_torch.kernels.placement_commit.ref import placement_commit_ref
     from repro_torch.kernels.segment_usage import ops as su_ops
@@ -211,6 +257,12 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.models import model as lm
     from repro_torch.serve.engine import ServingEngine
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import reduced
+    from repro_torch.distributed.fault import FaultPlan, FaultTolerantRunner
+    from repro_torch.train import optim
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.step import make_train_step
 
     # ---- 1. device ----------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -244,7 +296,8 @@ def main(argv=None) -> int:
                 "window_stats": ws_ops.window_stats_cuda,
                 "sched_commit": pc_ops.sched_commit_cuda,
                 "segment_usage": su_ops.segment_usage_cuda,
-                "flash_attention": fa_ops.flash_attention_cuda}
+                "flash_attention": fa_ops.flash_attention_cuda,
+                "fused_ce": ce_ops.fused_ce_cuda}
     results = {name: {} for name in counters}
 
     # ---- 3. kernels against their plain versions, cell-A shapes -------
@@ -440,6 +493,49 @@ def main(argv=None) -> int:
               f"{'causal' if causal else 'full'}: max abs err {err:.3g} "
               "(<= 1e-5)")
     del f_out, f_want, xs, got, want
+
+    # G: fused_ce at the training path's shape (qwen3-4b, 4 x 512 tokens,
+    # bf16), then in f32 at a ragged T with V < Vp
+    tcfg = dataclasses.replace(get_config(TRAIN_ARCH), chunked_ce=True,
+                               attention_impl="xla")
+    ce_T, ce_d = TRAIN_B * TRAIN_SEQ, tcfg.d_model
+    ce_Vp, ce_V = tcfg.padded_vocab, tcfg.vocab_size
+
+    def ce_inputs():
+        """x, w (the head's scale), labels with one in seven ignored."""
+        g = torch.Generator(device=dev).manual_seed(args.seed + 2)
+        x = torch.randn((ce_T, ce_d), generator=g, device=dev).bfloat16()
+        w = (torch.randn((ce_Vp, ce_d), generator=g, device=dev)
+             * 0.02).bfloat16()
+        lab = torch.randint(0, ce_V, (ce_T,), generator=g, device=dev,
+                            dtype=torch.int32)
+        lab[::7] = -1
+        return x, w, lab
+
+    cx, cw, clab = ce_inputs()
+    nll_k, lse_k = ce_ops.fused_ce_with_lse(cx, cw, clab, ce_V)
+    nll_r, lse_r = fused_ce_ref(cx, cw, clab, ce_V)
+    torch.cuda.synchronize()
+    g_err = max(float((nll_k - nll_r).abs().max()),
+                float((lse_k - lse_r).abs().max()))
+    assert nll_k.shape == (ce_T,) and bool(torch.isfinite(nll_k).all())
+    assert g_err <= 2e-3, f"G bf16: max abs err {g_err} > 2e-3"
+    assert not bool(nll_k[clab < 0].any()), "G: ignored labels not 0"
+    results["fused_ce"]["max_abs_err"] = g_err
+    print(f"G fused_ce T={ce_T} d={ce_d} Vp={ce_Vp} V={ce_V} bf16: nll and "
+          f"lse max abs err {g_err:.3g} (<= 2e-3), ignored labels exactly 0")
+    gx = torch.randn((200, 256), generator=fg, device=dev)
+    gw = torch.randn((4096, 256), generator=fg, device=dev)
+    glab = torch.randint(-1, 4000, (200,), generator=fg, device=dev,
+                         dtype=torch.int32)
+    got = ce_ops.fused_ce_with_lse(gx, gw, glab, 4000)
+    want = fused_ce_ref(gx, gw, glab, 4000)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    assert err <= 1e-4, f"G f32 ragged: max abs err {err} > 1e-4"
+    print(f"G fused_ce T=200 d=256 Vp=4096 V=4000 f32: nll and lse max abs "
+          f"err {err:.3g} (<= 1e-4)")
+    del cx, cw, clab, nll_k, lse_k, nll_r, lse_r, gx, gw, glab, got, want
 
     # ---- 4. the main path at cell A -----------------------------------
     tmp = tempfile.TemporaryDirectory()
@@ -764,10 +860,136 @@ def main(argv=None) -> int:
           f"{bool((first == logits_k.argmax(-1)).all())}")
     assert bool((gap <= 0.05).all()), gap
     assert max(rel32) < 2e-2, rel32
-    del params, rows, logits_k, logits_x
+    del params, rows, logits_k, logits_x, leaves
+
+    # ---- 7. the training path: qwen3-4b at full width -----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    print(f"train: memory held after serving "
+          f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.3f} GiB")
+    tc = TrainConfig()
+    t0 = time.time()
+    tparams = lm.init_params(tcfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    topt = optim.init_opt_state(tparams)
+    torch.cuda.synchronize()
+    print(f"train: {tcfg.name} at full width ({tcfg.n_layers} layers, "
+          f"d_model {tcfg.d_model}, vocab {tcfg.vocab_size}), chunked_ce "
+          f"(ce_chunks {tcfg.ce_chunks}), attention {tcfg.attention_impl}, "
+          f"remat {tcfg.remat_policy}, {tcfg.dtype} activations; "
+          f"parameters and moments initialised in {time.time() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.3f} GiB held")
+    data = SyntheticLM(tcfg, TRAIN_B, TRAIN_SEQ, seed=0)
+
+    def train_batch(i):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in data.global_batch(i).items()}
+
+    # the first batch: kernel G's loss and gradient against the plain
+    # chunked loss, on the final hidden states of the initial parameters
+    b0 = train_batch(0)
+    with torch.no_grad():
+        hid, _ = lm.hidden_states(tparams, tcfg, b0["tokens"])
+        hid = hid.reshape(ce_T, ce_d)
+        head = lm._head_weight(tparams, tcfg, 0).to(hid.dtype)
+    lab0 = b0["labels"].reshape(-1).to(torch.int32)
+    ce_out = []
+    for fn in (lm.cross_entropy_chunked, lm.cross_entropy_chunked_plain):
+        h = hid.clone().requires_grad_()
+        loss = fn(h, head, lab0, tcfg.vocab_size, tcfg.ce_chunks)
+        loss.backward()
+        ce_out.append((float(loss.detach()), h.grad))
+    (l_k, dx_k), (l_p, dx_p) = ce_out
+    dl = abs(l_k - l_p)
+    ddx = float((dx_k.float() - dx_p.float()).abs().max())
+    dx_max = float(dx_p.float().abs().max())
+    print(f"train check, first batch: loss through G {l_k:.6f}, plain "
+          f"chunked {l_p:.6f}, difference {dl:.3g} (<= 1e-3); d loss / d "
+          f"hidden max abs difference {ddx:.3g} of its largest {dx_max:.3g} "
+          f"(<= 1e-2 of it)")
+    assert dl <= 1e-3 and ddx <= 1e-2 * dx_max, (dl, ddx, dx_max)
+    del hid, head, ce_out, dx_k, dx_p, h, loss
+
+    step_fn = make_train_step(tcfg, tc)
+
+    def train_step(i):
+        nonlocal tparams, topt
+        tparams, topt, m = step_fn(tparams, topt, train_batch(i), None)
+        return float(m["loss"])            # the runner's host sync
+
+    t0 = time.time()
+    losses = [train_step(0)]               # warm-up
+    warm_s = time.time() - t0
+    for fn in counters.values():
+        fn.launches = 0
+    step_ms = []
+    for i in range(1, 1 + TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        losses.append(train_step(i))
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t0) * 1e3)
+    launches_train = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"launches (train run, {TRAIN_TIMED} steps): {launches_train}")
+    assert launches_train["fused_ce"] == TRAIN_TIMED, launches_train
+    assert all(launches_train[k] > 0 for k in TRAIN_PATH), launches_train
+    assert all(np.isfinite(losses)), losses
+    med_ms = float(np.median(step_ms))
+    print(f"train losses (warm-up + {TRAIN_TIMED}): {losses}")
+    print(f"train step: {step_ms} ms, median {med_ms:.3f} ms for "
+          f"{ce_T} tokens (warm-up step {warm_s * 1e3:.1f} ms) [{smi}]")
+    print(f"train tokens/s: {ce_T / med_ms * 1e3:.2f} [{smi}]")
+    print(f"train peak memory: {peak / 2 ** 30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated) [{smi}]")
+    prof_train = profile_call(torch, lambda: train_step(1 + TRAIN_TIMED),
+                              "train step (4 x 512 tokens)")
+    g_us = sum(v[0] for k, v in prof_train.items() if "fused_ce" in k)
+    all_us = sum(v[0] for v in prof_train.values())
+    print(f"train: kernel G {g_us / 1e3:.3f} ms of {all_us / 1e3:.3f} ms "
+          f"device time in the traced step (share {g_us / all_us:.4f}) "
+          f"[{smi}]")
+    cats = {}
+    for k, (dev_us, count) in prof_train.items():
+        cat = next((c for c, keys in TRAIN_CATEGORIES if any(
+            key in k for key in keys)), "other")
+        us, n = cats.get(cat, (0.0, 0))
+        cats[cat] = (us + dev_us, n + count)
+    print("train step, device time by category:")
+    for cat, (dev_us, count) in sorted(cats.items(),
+                                       key=lambda kv: -kv[1][0]):
+        print(f"  {dev_us / 1e3:10.3f} ms  x{count:<6d} "
+              f"{dev_us / all_us:.3f}  {cat}")
+    del tparams, topt, step_fn, b0
+    gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- 7. times at the main path's shapes ---------------------------
+    # the training CLI's configuration at reduced width through the runner,
+    # uninterrupted and with a crash injected at step 4
+    rcfg = dataclasses.replace(reduced(get_config(TRAIN_ARCH)),
+                               remat_policy="none")
+    reps = []
+    for plan in (FaultPlan(), FaultPlan(crashes={4: "smoke"})):
+        with tempfile.TemporaryDirectory() as d:
+            rtc = TrainConfig(learning_rate=3e-4, total_steps=8,
+                              warmup_steps=1, checkpoint_every=3,
+                              checkpoint_dir=d)
+            reps.append(FaultTolerantRunner(
+                rcfg, rtc, batch=4, seq_len=64, fault_plan=plan,
+                device=dev).run(8))
+    ref_rep, crash_rep = reps
+    diff = float(np.abs(np.subtract(ref_rep["losses"],
+                                    crash_rep["losses"])).max())
+    print(f"train runner (reduced {rcfg.name}, 8 steps, checkpoint every 3):"
+          f" recoveries {crash_rep['recoveries']}, losses "
+          f"{crash_rep['losses']}; largest difference from the "
+          f"uninterrupted run {diff:.3g} (<= 1e-5), bitwise "
+          f"{ref_rep['losses'] == crash_rep['losses']}")
+    assert crash_rep["recoveries"] == [4] and crash_rep["final_step"] == 8
+    assert len(crash_rep["losses"]) == 8 and diff <= 1e-5, diff
+
+    # ---- 8. times at the main path's shapes ---------------------------
     W = args.windows
     # D at the fleet's shapes and lane layout: the bytes each lane must
     # read once (ok; scores only for static score-family lanes; ext rows of
@@ -868,8 +1090,33 @@ def main(argv=None) -> int:
           f"{lib_ms:.4f} ms (scaled_dot_product_attention), launches per "
           f"prefill {launches_serve['flash_attention']}, bound "
           f"{b_ms:.4f} ms ({b_by}) [{smi}]")
+    # G at the training path's shape; the library yardstick is two calls,
+    # linear (bf16, the unpadded vocab) and cross_entropy on the
+    # materialised f32 logits
+    cx, cw, clab = ce_inputs()
+    clab_l = clab.long()
+    fnl = torch.nn.functional
+    ms = time_ms(torch, lambda: ce_ops.fused_ce_with_lse(cx, cw, clab, ce_V),
+                 5)
+    plain_ms = time_ms(torch, lambda: fused_ce_ref(cx, cw, clab, ce_V), 3,
+                       warmup=1)
+    lib_ms = time_ms(torch, lambda: fnl.cross_entropy(
+        fnl.linear(cx, cw[:ce_V]).float(), clab_l, reduction="none",
+        ignore_index=-1), 5)
+    # bytes: x, W and the labels read once, nll and lse written once;
+    # operations: T x Vp x d multiply-adds on bf16 operands
+    b_ms, b_by = bound_ms(nbytes(cx, cw, clab) + 2 * ce_T * 4,
+                          2 * ce_T * ce_Vp * ce_d, BF16_OPS_PER_S)
+    results["fused_ce"].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=b_ms, bound_by=b_by)
+    print(f"time fused_ce (train T={ce_T} d={ce_d} Vp={ce_Vp} bf16): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+          f"(two calls: linear + cross_entropy), launches per train step "
+          f"{launches_train['fused_ce'] / TRAIN_TIMED:.4g}, bound "
+          f"{b_ms:.4f} ms ({b_by}) [{smi}]")
+    del cx, cw, clab, clab_l
 
-    # ---- 8. the kernel table ------------------------------------------
+    # ---- 9. the kernel table ------------------------------------------
     meta = {
         "constraint_match": ("src/repro/kernels/constraint_match/kernel.py:76",),
         "placement_commit": ("src/repro/kernels/placement_commit/kernel.py:121",),
@@ -877,6 +1124,7 @@ def main(argv=None) -> int:
         "sched_commit": ("src/repro/kernels/placement_commit/kernel.py:434",),
         "segment_usage": ("src/repro/kernels/segment_usage/kernel.py:39",),
         "flash_attention": ("src/repro/kernels/flash_attention/kernel.py:62",),
+        "fused_ce": ("src/repro/kernels/fused_ce/kernel.py:67",),
     }
     table = []
     for name in counters:
@@ -886,10 +1134,11 @@ def main(argv=None) -> int:
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": meta[name][0],
             "launches": (launches[name] + launches_fleet[name]
-                         + launches_serve[name]),
+                         + launches_serve[name] + launches_train[name]),
             "launches_by_path": {"simulate": launches[name],
                                  "fleet": launches_fleet[name],
-                                 "serve": launches_serve[name]},
+                                 "serve": launches_serve[name],
+                                 "train": launches_train[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

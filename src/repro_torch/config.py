@@ -1,5 +1,6 @@
-"""The configurations: copies of the reference's ``SimConfig`` and
-``ModelConfig``.
+"""The configurations: copies of the reference's ``SimConfig``,
+``ModelConfig``, ``ShapeConfig`` (and ``SHAPES``), ``TrainConfig`` and
+``describe``.
 
 Field for field and default for default the dataclasses of ``repro.config``
 (tests hold them equal), kept here so that the port imports nothing of
@@ -26,10 +27,10 @@ def _round_up(x: int, m: int) -> int:
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture description for the layer-pattern compiler in
-    models/model.py. ``remat_policy``, ``chunked_ce``, ``ce_chunks``,
-    ``moe_impl``, ``pad_head_shard`` and ``bf16_weight_gather`` are read by
-    the reference's training and sharding paths only; the port's serving
-    path keeps them so that configs compare equal."""
+    models/model.py. ``remat_policy``, ``chunked_ce``, ``ce_chunks`` and
+    ``bf16_weight_gather`` are read by the training path; ``moe_impl`` and
+    ``pad_head_shard`` by the reference's sharding paths only, kept here so
+    that configs compare equal."""
 
     name: str
     family: str                      # dense | moe | ssm | hybrid | audio | vlm
@@ -149,6 +150,114 @@ class ModelConfig:
 
     def has_attention(self) -> bool:
         return any(m == "attn" for m, _ in self.layer_pattern())
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for 6ND model-FLOPs)."""
+        d, v = self.d_model, self.padded_vocab
+        hd = self.resolved_head_dim
+        total = v * d                                    # embedding
+        if not self.tie_embeddings:
+            total += d * v * self.n_codebooks            # output head(s)
+        if self.n_codebooks > 1:
+            total += (self.n_codebooks - 1) * v * d      # extra codebook embeds
+        for mixer, mlp in self.layer_pattern() * self.n_repeats:
+            total += d                                   # pre-mixer norm
+            if mixer == "attn":
+                total += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+                if self.qk_norm:
+                    total += 2 * hd
+            else:                                        # mamba2 block
+                din, h, n = self.d_inner, self.ssm_heads, self.ssm_state
+                total += d * (2 * din + 2 * n + h)       # in_proj (z,x,B,C,dt)
+                total += self.ssm_conv * (din + 2 * n)   # conv
+                total += 3 * h + din                     # A, D, dt_bias, norm
+                total += din * d                         # out_proj
+            if mlp == "dense":
+                total += d + 3 * d * self.d_ff
+            elif mlp == "moe":
+                total += (d + self.n_experts * 3 * d * self.moe_d_ff
+                          + d * self.n_experts)
+                total += self.n_shared_experts * 3 * d * self.shared_d_ff
+        total += d                                       # final norm
+        return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k + shared experts only)."""
+        if not self.n_experts:
+            return self.param_count()
+        d = self.d_model
+        dense_like = replace(self, n_experts=0, moe_top_k=0,
+                             n_shared_experts=0, d_ff=self.d_ff or 1)
+        base = dense_like.param_count()
+        # remove the placeholder dense MLPs just added where MoE layers were
+        n_moe = sum(1 for _, m in self.layer_pattern()
+                    if m == "moe") * self.n_repeats
+        n_dense_orig = sum(1 for _, m in self.layer_pattern()
+                           if m == "dense") * self.n_repeats
+        base -= (n_moe + n_dense_orig) * (d + 3 * d * (self.d_ff or 1))
+        base += n_dense_orig * (d + 3 * d * self.d_ff)
+        per_moe = (d + self.moe_top_k * 3 * d * self.moe_d_ff
+                   + d * self.n_experts
+                   + self.n_shared_experts * 3 * d * self.shared_d_ff)
+        return base + n_moe * per_moe
+
+
+def describe(cfg: ModelConfig) -> str:
+    n = cfg.param_count()
+    na = cfg.active_param_count()
+    pat = cfg.layer_pattern()
+    return (f"{cfg.name}: {cfg.n_layers}L d={cfg.d_model} "
+            f"H={cfg.n_heads}/{cfg.n_kv_heads} "
+            f"dff={cfg.d_ff or cfg.moe_d_ff} vocab={cfg.vocab_size} "
+            f"params={n/1e9:.2f}B active={na/1e9:.2f}B "
+            f"pattern={len(pat)}x{cfg.n_repeats}")
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+    num_microbatches: int = 1
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256,
+                            num_microbatches=8),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32,
+                               num_microbatches=1),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+# ---------------------------------------------------------------------------
+# Training runtime configuration
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    seed: int = 0
+    num_microbatches: int = 1
+    grad_compression: str = "none"    # none | int8_ef
+    checkpoint_every: int = 50
+    keep_checkpoints: int = 3
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    async_checkpoint: bool = True
+    log_every: int = 10
 
 
 # ---------------------------------------------------------------------------

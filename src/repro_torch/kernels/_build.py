@@ -50,6 +50,7 @@ SIGNATURES: Dict[str, List] = {
     "segment_usage_launch": [P, P, P, P, I, I, I, P],
     "flash_attention_launch": [P, P, P, P, L, L, L, L, L, L, L, L, L,
                                I, I, I, I, I, I, F, P],
+    "fused_ce_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
 }
 
 _lock = threading.Lock()

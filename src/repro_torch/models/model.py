@@ -10,6 +10,15 @@ loop over repeats is a Python loop in place of ``lax.scan``.
 ``params_from_numpy`` / ``params_to_numpy`` carry the reference's
 parameters across, key for key and bit for bit.
 
+The training subset: :func:`loss_fn` with the full-logit
+:func:`cross_entropy` or, under ``cfg.chunked_ce``,
+:func:`cross_entropy_chunked` (kernel G on a CUDA tensor), and the
+per-repeat remat of :func:`hidden_states`. A training step may hand these
+functions a tree whose stacked leaves are lists of per-index tensors
+(``train/step.py``): ``w[r]`` reads either.
+``opt_state_from_numpy`` / ``opt_state_to_numpy`` carry the reference's
+optimizer state across.
+
 Mamba mixers and MoE MLPs wait for a later slice of the port (ROADMAP
 Queue 1) and raise ``NotImplementedError``.
 """
@@ -21,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels.fused_ce.ops import FusedCEMean
 from repro_torch.models import attention
 from repro_torch.models.layers import (ParamDef, init_from_defs, mlp_apply,
                                        mlp_param_defs, rms_norm, torch_dtype)
@@ -137,6 +147,26 @@ def params_to_numpy(params: Params) -> Params:
     return params.detach().cpu().numpy()
 
 
+def opt_state_from_numpy(cfg: ModelConfig, state, device=None):
+    """The reference's ``OptState`` with numpy leaves -> the port's
+    :class:`~repro_torch.train.optim.OptState` on ``device``: step, and mu,
+    nu (and ef, where present) checked against the parameter tree."""
+    from repro_torch.train.optim import OptState
+    device = torch.device("cpu" if device is None else device)
+    conv = (lambda t: None if t is None
+            else params_from_numpy(cfg, t, device))
+    return OptState(step=torch.as_tensor(np.asarray(state.step),
+                                         dtype=torch.int32).to(device),
+                    mu=conv(state.mu), nu=conv(state.nu), ef=conv(state.ef))
+
+
+def opt_state_to_numpy(state):
+    """The inverse of :func:`opt_state_from_numpy`: (step, mu, nu, ef) as
+    numpy trees (ef None where absent), in ``OptState``'s field order."""
+    return type(state)(*[None if t is None else params_to_numpy(t)
+                         for t in state])
+
+
 def activation_weights(params: Params, cfg: ModelConfig) -> Params:
     """``params`` with every matrix that the forward casts at use
     (``.to(x.dtype)``: the attention and MLP projections) cast once to
@@ -184,8 +214,10 @@ def logits_from_hidden(params: Params, cfg: ModelConfig,
     vp = cfg.padded_vocab
     B, S, _ = x.shape
     if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,kvd->bskv", x.float(),
-                              params["embed"].float())
+        embed = params["embed"]
+        if isinstance(embed, (list, tuple)):        # per-codebook leaves
+            embed = torch.stack(list(embed))
+        logits = torch.einsum("bsd,kvd->bskv", x.float(), embed.float())
     else:
         logits = (x.float() @ params["lm_head"].float()).reshape(
             B, S, cfg.n_codebooks, vp)
@@ -218,18 +250,54 @@ def _prefix(params, cfg, tokens, vision_embeds):
     return x, positions
 
 
+_SAVED_BY_MINIMAL = ("mm", "addmm")   # aten products without batch dims
+
+
+def _save_matmul_outputs():
+    """Selective-checkpoint contexts that keep the outputs of products
+    without batch dims and recompute everything else: the counterpart of
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    saved = {getattr(torch.ops.aten, n).default for n in _SAVED_BY_MINIMAL}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _remat(fn, policy: str):
+    """``fn`` under the config's remat policy: 'none' as it is, 'minimal'
+    saving the matmul outputs, 'full' saving nothing but its inputs. Remat
+    changes no value; without autograd there is nothing to save."""
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn
+    from torch.utils.checkpoint import checkpoint
+    kw = {"context_fn": _save_matmul_outputs} if policy == "minimal" else {}
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def hidden_states(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   vision_embeds: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """forward() up to (but not including) the logit projection."""
+    """forward() up to (but not including) the logit projection. Each
+    repeat of the pattern runs under ``cfg.remat_policy``, as the
+    reference's scan body does."""
     _check_supported(cfg)
     x, positions = _prefix(params, cfg, tokens, vision_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     pattern = cfg.layer_pattern()
-    for r in range(cfg.n_repeats):
+
+    def body(xx, aux, block_r):
         for pos, (mixer, mlp) in enumerate(pattern):
-            x, aux = _apply_block(cfg, _layer(params["blocks"][pos], r),
-                                  mixer, mlp, x, positions, aux)
+            xx, aux = _apply_block(cfg, block_r[pos], mixer, mlp, xx,
+                                   positions, aux)
+        return xx, aux
+
+    body = _remat(body, cfg.remat_policy)
+    for r in range(cfg.n_repeats):
+        x, aux = body(x, aux, [_layer(p, r) for p in params["blocks"]])
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -243,6 +311,121 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """
     x, aux = hidden_states(params, cfg, tokens, vision_embeds=vision_embeds)
     return logits_from_hidden(params, cfg, x), aux
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits: (B, S, K, Vp) f32; labels: (B, S) or (B, S, K) int.
+
+    Positions with label < 0 are ignored.
+    """
+    if labels.dim() == 2:
+        labels = labels[..., None]
+    valid = labels >= 0
+    if mask is not None:
+        valid = valid & mask[..., None].bool()
+    safe = labels.clamp_min(0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, safe[..., None])[..., 0]
+    nll = torch.where(valid, lse - picked, torch.zeros_like(lse))
+    return nll.sum() / valid.sum().clamp_min(1)
+
+
+def cross_entropy_chunked_plain(x: torch.Tensor, w_vd: torch.Tensor,
+                                labels: torch.Tensor, vocab_size: int,
+                                n_chunks: int) -> torch.Tensor:
+    """The reference's streaming logsumexp over vocab chunks, step for
+    step. Each chunk's logits are the f32 products of the operands: the
+    reference writes ``einsum(x, w_c).astype(float32)``, which rounds to
+    bf16 first when run op by op, but XLA compiles the scan with the convert
+    folded into the product and keeps f32, and the port follows what the
+    reference computes. Plain PyTorch on any device; autograd keeps each
+    chunk's logits for the backward."""
+    T, d = x.shape
+    Vp = w_vd.shape[0]
+    assert Vp % n_chunks == 0
+    Vc = Vp // n_chunks
+    valid = labels >= 0
+    safe = labels.clamp_min(0).long()
+    m = torch.full((T,), -1e30, dtype=torch.float32, device=x.device)
+    s = torch.zeros((T,), dtype=torch.float32, device=x.device)
+    picked = torch.zeros((T,), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        col0 = c * Vc
+        logits = torch.einsum("td,vd->tv", x.float(),
+                              w_vd[col0:col0 + Vc].float())
+        col = col0 + torch.arange(Vc, device=x.device)
+        logits = logits.masked_fill((col >= vocab_size)[None, :], -1e30)
+        m_new = torch.maximum(m, logits.max(dim=-1).values)
+        s = s * torch.exp(m - m_new) + torch.exp(
+            logits - m_new[:, None]).sum(-1)
+        m = m_new
+        inchunk = (safe >= col0) & (safe < col0 + Vc)
+        local = logits.gather(
+            1, (safe - col0).clamp(0, Vc - 1)[:, None])[:, 0]
+        picked = picked + torch.where(inchunk, local,
+                                      torch.zeros_like(local))
+    nll = torch.where(valid, torch.log(s) + m - picked, torch.zeros_like(s))
+    return nll.sum() / valid.sum().clamp_min(1)
+
+
+def cross_entropy_chunked(x: torch.Tensor, w_vd: torch.Tensor,
+                          labels: torch.Tensor, vocab_size: int,
+                          n_chunks: int) -> torch.Tensor:
+    """Fused projection + CE without the (T, Vp) logits. x: (T, d); w_vd:
+    (Vp, d); labels: (T,) (<0 = ignore). On a CUDA tensor it is
+    :class:`FusedCEMean` (kernel G forward, a backward chunked by
+    ``n_chunks``); on a CPU tensor the copy of the reference's scan,
+    :func:`cross_entropy_chunked_plain`. Both keep the logits in f32, as
+    the reference's Pallas kernel and its compiled scan do."""
+    if x.device.type != "cuda":
+        return cross_entropy_chunked_plain(x, w_vd, labels, vocab_size,
+                                           n_chunks)
+    return FusedCEMean.apply(x.contiguous(), w_vd.contiguous(),
+                             labels.to(torch.int32).contiguous(),
+                             vocab_size, n_chunks)
+
+
+def _head_weight(params: Params, cfg: ModelConfig,
+                 codebook: int) -> torch.Tensor:
+    """(Vp, d) projection for one codebook, tied or untied."""
+    if cfg.tie_embeddings:
+        return params["embed"][codebook]
+    vp = cfg.padded_vocab
+    return params["lm_head"][:, codebook * vp:(codebook + 1) * vp].T
+
+
+def loss_fn(params: Params, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    if cfg.chunked_ce:
+        x, aux = hidden_states(params, cfg, batch["tokens"],
+                               vision_embeds=batch.get("vision_embeds"))
+        if cfg.n_prefix:
+            x = x[:, cfg.n_prefix:]
+        B, S, d = x.shape
+        labels = batch["labels"]
+        if labels.dim() == 2:
+            labels = labels[..., None]
+        ce = 0.0
+        for k in range(cfg.n_codebooks):
+            w = _head_weight(params, cfg, k).to(x.dtype)
+            ce = ce + cross_entropy_chunked(
+                x.reshape(B * S, d), w, labels[..., k].reshape(-1),
+                cfg.vocab_size, cfg.ce_chunks)
+        ce = ce / cfg.n_codebooks
+    else:
+        logits, aux = forward(params, cfg, batch["tokens"],
+                              vision_embeds=batch.get("vision_embeds"))
+        if cfg.n_prefix:
+            logits = logits[:, cfg.n_prefix:]
+        ce = cross_entropy(logits, batch["labels"])
+    total = ce + cfg.router_aux_coef * aux
+    return total, {"ce": ce, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------

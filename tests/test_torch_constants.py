@@ -3,7 +3,9 @@ reference's: task states, usage columns, priority classes, event kinds,
 constraint ops, the SimConfig dataclass (fields and defaults), the cell-A
 config, the numpy event packing, trace generation and GCD parsing, and the
 scenario fleet's proposal-family codes, perturbation salts, ScenarioSpec
-(fields, defaults, validation) and knob labels."""
+(fields, defaults, validation) and knob labels; the training side's
+TrainConfig and ShapeConfig (fields and defaults), SHAPES, and each
+architecture's parameter counts and ``describe`` line."""
 import dataclasses
 
 import numpy as np
@@ -193,3 +195,24 @@ def test_arch_configs_equal(arch, shrink):
         assert getattr(mine, prop) == getattr(ref, prop), prop
     assert mine.layer_pattern() == ref.layer_pattern()
     assert mine.has_attention() == ref.has_attention()
+    assert mine.param_count() == ref.param_count()
+    assert mine.active_param_count() == ref.active_param_count()
+    assert config.describe(mine) == ref_config.describe(ref)
+
+
+def test_trainconfig_fields_and_defaults_equal():
+    mine = [(f.name, f.default)
+            for f in dataclasses.fields(config.TrainConfig)]
+    ref = [(f.name, f.default)
+           for f in dataclasses.fields(ref_config.TrainConfig)]
+    assert mine == ref
+
+
+def test_shapes_equal():
+    mine = [(f.name, f.default)
+            for f in dataclasses.fields(config.ShapeConfig)]
+    ref = [(f.name, f.default)
+           for f in dataclasses.fields(ref_config.ShapeConfig)]
+    assert mine == ref
+    assert {k: dataclasses.asdict(v) for k, v in config.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in ref_config.SHAPES.items()}

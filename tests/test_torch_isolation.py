@@ -49,7 +49,10 @@ def test_port_imports_with_jax_and_reference_blocked():
             "repro_torch.kernels._build, repro_torch.configs, "
             "repro_torch.models.model, repro_torch.serve.engine, "
             "repro_torch.launch.serve, "
-            "repro_torch.kernels.flash_attention.ops\n"
+            "repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.kernels.fused_ce.ops, repro_torch.train.step, "
+            "repro_torch.distributed.fault, repro_torch.checkpoint.ckpt, "
+            "repro_torch.launch.train\n"
             "assert 'jax' not in [m.split('.')[0] for m, v in "
             "sys.modules.items() if v is not None]\n"
             "print('ok')\n")

@@ -3,15 +3,22 @@ that are not tile multiples and with more than one lane (kernel D with mixed
 families and per-lane modes, kernel B's per-lane flag, kernel A's lane
 axis; kernel F in f32 and bf16, causal and full, head dims 16-128, S a
 multiple of the tile or not, strided inputs); the engine and the scenario
-fleet (both dispatch paths), and the LM serving path with kernel F, on the
-card against the CPU path. Skipped without a CUDA device; on the card
+fleet (both dispatch paths), the LM serving path with kernel F, and kernel
+G (the fused cross-entropy: small ragged shapes, qwen3-4b's training
+shape, the gradients of the loss built on it, one train step), on the card
+against the CPU path or the plain version. Skipped without a CUDA device; on the card
 (where JAX, which tests/conftest.py imports, need not be installed):
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
 Bar: integers exact, grid-data sums and scores bitwise, variances within
 rtol 2.5e-7; kernel F within 1e-5 (f32) and 2e-2 (bf16) of its plain
-version, the reference's own attention bar.
+version, the reference's own attention bar; kernel G's per-token nll and
+lse within 1e-4 of its plain version (both take f32 products of the
+operands; only the order of the sums differs; 2e-3 at the training shape,
+where each logit sums 2,560 products), its loss gradients within 1e-5 (f32)
+and 1e-2 of the largest gradient (bf16) of autograd through the plain
+chunked loss, one train step's loss within 1e-4 of the CPU's.
 """
 import dataclasses
 
@@ -27,6 +34,8 @@ from repro_torch.core.state import init_state, state_to_numpy
 from repro_torch.kernels.constraint_match import ops as cm_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.fused_ce import ops as ce_ops
+from repro_torch.kernels.fused_ce.ref import fused_ce_ref
 from repro_torch.kernels.constraint_match.ref import constraint_match_ref
 from repro_torch.kernels.placement_commit import ops as pc_ops
 from repro_torch.kernels.placement_commit.ref import placement_commit_ref
@@ -336,3 +345,100 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,d,Vp,V", [(1, 8, 64, 64), (100, 16, 128, 128),
+                                      (200, 72, 1000, 900),
+                                      (64, 32, 256, 250),
+                                      (513, 256, 4096, 4000)])
+def test_fused_ce(dev, T, d, Vp, V, dtype):
+    g = torch.Generator(device=dev).manual_seed(T + d)
+    x = torch.randn((T, d), generator=g, device=dev).to(dtype)
+    w = torch.randn((Vp, d), generator=g, device=dev).to(dtype)
+    lab = torch.randint(-1, V, (T,), generator=g, device=dev,
+                        dtype=torch.int32)
+    before = ce_ops.fused_ce_cuda.launches
+    nll, lse = ce_ops.fused_ce_with_lse(x, w, lab, V)
+    assert ce_ops.fused_ce_cuda.launches == before + 1
+    want_nll, want_lse = fused_ce_ref(x, w, lab, V)
+    torch.cuda.synchronize()
+    assert (nll - want_nll).abs().max() <= 1e-4
+    assert (lse - want_lse).abs().max() <= 1e-4
+    assert not nll[lab < 0].any()
+
+
+def test_fused_ce_training_shape(dev):
+    """qwen3-4b's training shape: T=2,048, d=2,560, Vp=152,064, V=151,936,
+    bf16, a share of labels ignored."""
+    T, d, Vp, V = 2048, 2560, 152064, 151936
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((T, d), generator=g, device=dev).bfloat16()
+    w = (torch.randn((Vp, d), generator=g, device=dev) * 0.02).bfloat16()
+    lab = torch.randint(0, V, (T,), generator=g, device=dev,
+                        dtype=torch.int32)
+    lab[::7] = -1
+    nll, lse = ce_ops.fused_ce_with_lse(x, w, lab, V)
+    want_nll, want_lse = fused_ce_ref(x, w, lab, V)
+    torch.cuda.synchronize()
+    assert (nll - want_nll).abs().max() <= 2e-3
+    assert (lse - want_lse).abs().max() <= 2e-3
+    assert not nll[lab < 0].any()
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_fused_ce_mean_grads_on_card(dev, dtype, rel):
+    from repro_torch.models.model import cross_entropy_chunked_plain
+    T, d, Vp, V = 300, 64, 1024, 1000
+    g = torch.Generator(device=dev).manual_seed(1)
+    x0 = torch.randn((T, d), generator=g, device=dev).to(dtype)
+    w0 = torch.randn((Vp, d), generator=g, device=dev).to(dtype)
+    lab = torch.randint(-1, V, (T,), generator=g, device=dev,
+                        dtype=torch.int32)
+    out = []
+    for fn in (lambda a, b: ce_ops.FusedCEMean.apply(a, b, lab, V, 4),
+               lambda a, b: cross_entropy_chunked_plain(a, b, lab, V, 4)):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        loss = fn(x, w)
+        loss.backward()
+        out.append((loss.detach(), x.grad, w.grad))
+    torch.cuda.synchronize()
+    (lk, xk, wk), (lp, xp, wp) = out
+    assert abs(float(lk) - float(lp)) <= 1e-4
+    for a, b in ((xk, xp), (wk, wp)):
+        assert a.dtype == dtype
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= rel * max(float(b.float().abs().max()), 1e-30), err
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """qwen3-4b reduced to 2 layers, chunked CE (kernel G once a step), f32
+    activations: two steps' losses within 1e-4 of the CPU path's."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model
+    from repro_torch.train import optim
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.step import make_train_step
+    cfg = dataclasses.replace(reduced(get_config("qwen3-4b")), n_layers=2,
+                              chunked_ce=True, dtype="float32")
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    data = SyntheticLM(cfg, 4, 32, seed=0)
+    losses = {}
+    for device in (dev, torch.device("cpu")):
+        p = _to(model.init_params(cfg, torch.Generator().manual_seed(0)),
+                device)
+        st = optim.init_opt_state(p)
+        fn = make_train_step(cfg, tc)
+        before = ce_ops.fused_ce_cuda.launches
+        out = []
+        for s in range(2):
+            b = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.global_batch(s).items()}
+            p, st, m = fn(p, st, b)
+            out.append(float(m["loss"]))
+        assert ce_ops.fused_ce_cuda.launches - before == (
+            2 if device.type == "cuda" else 0)
+        losses[device.type] = out
+    assert np.allclose(losses["cuda"], losses["cpu"], rtol=0, atol=1e-4)
