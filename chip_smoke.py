@@ -10,17 +10,20 @@ Phases, each printing its own lines:
      lines);
   3. each kernel against its plain PyTorch version on the card, at the
      shapes of the paper's cell A, on grid-aligned inputs made from a seed
-     (integers and sums bitwise, variances within rtol 2.5e-7; segment_usage
-     also off the grid); the fleet's shapes too, B=8 lanes: constraint_match
-     with its lane axis, placement_commit with a per-lane flag ('both'), and
-     sched_commit with lanes of all three proposal families in modes
+     (integers and sums bitwise, variances within rtol 2.5e-7);
+     segment_usage in its lane form at B=1 and B=8 (one launch), uniform
+     and Zipf-skewed nodes, also off the grid, there bitwise against the
+     host's f32 sum in task order; the fleet's shapes too, B=8 lanes:
+     constraint_match with its lane axis, placement_commit with a per-lane
+     flag ('both'), and sched_commit with lanes of all three proposal
+     families in modes
      static, dynamic and both, one operand shared by the lanes;
      flash_attention at the serving shape of qwen3-4b (B=4, S=512, H=32,
      D=128, bf16, causal; max abs err 2e-2) and in f32 at a ragged S,
      causal and full (1e-5); fused_ce at qwen3-4b's training shape
      (T=2,048, d=2,560, Vp=152,064, V=151,936, bf16, one label in seven
-     ignored; per-token nll and lse within 2e-3) and in f32 at a ragged T
-     with V < Vp (1e-4);
+     ignored; per-token nll and lse within 2e-3; its tensor-core body) and
+     in f32 at a ragged T with V < Vp (1e-4; its SIMT body);
   4. the main path: ``Simulation`` with ``greedy`` over a synthetic GCD
      trace at cell A (12,500 nodes, 262,144 task slots, sched_batch 1,024)
      for 64 windows with one accounting resync, then ``first_fit`` for a
@@ -59,8 +62,9 @@ Phases, each printing its own lines:
      it: the first batch's loss and its gradient with respect to the final
      hidden states through kernel G against the plain chunked loss on the
      card (loss within 1e-3, gradient within 1e-2 of its largest value);
-     one warm-up step and three timed steps, kernel G's launch count reset
-     just before and read just after (3); finite losses; step ms,
+     one warm-up step and three timed steps, kernel G's launch counts reset
+     just before and read just after (3, all through its tensor-core
+     body); finite losses; step ms,
      tokens/s, peak memory; a torch.profiler trace of one step (device
      time by kernel, G's share, busy share); then the training CLI's
      configuration at reduced width through ``FaultTolerantRunner`` with a
@@ -69,11 +73,12 @@ Phases, each printing its own lines:
      match within 1e-5 (the largest difference, and whether the two are
      bitwise, printed);
   8. kernel times at the main path's shapes (CUDA events, L2 flushed,
-     median) beside the plain version, the library call where one exists,
-     and the bound; sched_commit (and constraint_match) at the fleet's,
-     flash_attention at the serving path's, fused_ce at the training
-     path's (the library yardstick there is two calls: ``linear`` and
-     ``cross_entropy``);
+     the host queued ahead of the device, median) beside the plain
+     version, the library call where one exists, and the bound;
+     sched_commit (and constraint_match and segment_usage) at the
+     fleet's, flash_attention at the serving path's, fused_ce at the
+     training path's (the library yardstick there is two calls:
+     ``linear`` and ``cross_entropy``);
   9. a ``kernels:`` status line and the JSON kernel table (seven
      kernels, launches by path).
 
@@ -130,6 +135,8 @@ TRAIN_CATEGORIES = (
      ("elementwise", "reduce", "Reduce", "softmax", "Softmax")),
 )
 ULP_RTOL = 2.5e-7             # "within 2 ulp" for the variances
+SLEEP_CYCLES = 2_000_000      # ~1 ms of device clock before a timed call
+G_TC_BODY = "tensor cores: TMA + wgmma m64n256k16, bf16 in, f32 out"
 
 
 PLUGIN = "smoke_pack_left"     # the fleet's external-family lane
@@ -161,13 +168,17 @@ def grid(rng, lo, hi, shape, q=128):
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Median CUDA-event time of ``fn`` with L2 flushed before each run."""
+    """Median CUDA-event time of ``fn`` with L2 flushed before each run.
+    A ~1 ms device sleep queued before the start event lets the host
+    enqueue ``fn``'s launches ahead of the device, so a call whose device
+    time is below its host enqueue time is timed on the device."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -243,7 +254,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.placement_commit import ops as pc_ops
     from repro_torch.kernels.placement_commit.ref import placement_commit_ref
     from repro_torch.kernels.segment_usage import ops as su_ops
-    from repro_torch.kernels.segment_usage.ref import segment_usage_ref
+    from repro_torch.kernels.segment_usage.ref import (
+        segment_usage_lanes_ref, segment_usage_ref)
     from repro_torch.kernels.window_stats import ops as ws_ops
     from repro_torch.kernels.window_stats.ref import window_reductions_ref
     from repro_torch.kernels.placement_commit.ref import (
@@ -299,6 +311,11 @@ def main(argv=None) -> int:
                 "flash_attention": fa_ops.flash_attention_cuda,
                 "fused_ce": ce_ops.fused_ce_cuda}
     results = {name: {} for name in counters}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+        ce_ops.fused_ce_cuda.launches_tc = 0    # G's tensor-core body
 
     # ---- 3. kernels against their plain versions, cell-A shapes -------
     # A: constraint_match
@@ -369,26 +386,45 @@ def main(argv=None) -> int:
     print(f"C window_stats T={T} N={N}: counts/histogram exact, sums "
           f"bitwise, variances within rtol {ULP_RTOL}")
 
-    # E: segment_usage, grid data bitwise and off-grid data within rtol
+    # E: segment_usage in its lane form, at the main path's B=1 and the
+    # fleet's B=8 (one launch for all lanes), uniform and Zipf-skewed
+    # nodes: grid data bitwise against the plain version, off-grid data
+    # bitwise against the host's f32 sum in task order (np.add.at)
     task_node = cuda(rng.integers(-1, N, T).astype(np.int32))
     mask = cuda(rng.random(T) < 0.7)
     values = cuda(grid(rng, 0, 48, (T, R)))
     e_args = (task_node, values, mask, N)
-    out_k = su_ops.segment_usage(*e_args)
-    out_r = segment_usage_ref(*e_args)
-    torch.cuda.synchronize()
-    assert torch.equal(out_k, out_r), "E: grid sums not bitwise"
-    e_err = float((out_k - out_r).abs().max())
-    values_off = cuda(rng.random((T, R), dtype=np.float32))
-    out_k2 = su_ops.segment_usage(task_node, values_off, mask, N)
-    out_r2 = segment_usage_ref(task_node, values_off, mask, N)
-    torch.cuda.synchronize()
-    assert torch.allclose(out_k2, out_r2, rtol=1e-6, atol=0), \
-        "E: off-grid sums beyond rtol 1e-6"
-    e_err = max(e_err, float((out_k2 - out_r2).abs().max()))
+    e_lanes = (cuda(rng.integers(-1, N, (FLEET_B, T)).astype(np.int32)),
+               cuda(grid(rng, 0, 48, (FLEET_B, T, R))),
+               cuda(rng.random((FLEET_B, T)) < 0.7), N)
+    zipf = np.minimum(rng.zipf(1.3, (FLEET_B, T)) - 1, N - 1)
+    e_err = 0.0
+    for label, (node_e, mask_e) in (
+            ("uniform", (e_lanes[0], e_lanes[2])),
+            ("zipf", (cuda(zipf.astype(np.int32)), e_lanes[2]))):
+        for B_e in (1, FLEET_B):
+            nd, mk = node_e[:B_e], mask_e[:B_e]
+            n0 = su_ops.segment_usage_cuda.launches
+            out_k = su_ops.segment_usage_lanes(nd, e_lanes[1][:B_e], mk, N)
+            assert su_ops.segment_usage_cuda.launches == n0 + 1
+            out_r = segment_usage_lanes_ref(nd, e_lanes[1][:B_e], mk, N)
+            torch.cuda.synchronize()
+            assert torch.equal(out_k, out_r), f"E {label} B={B_e}: grid"
+            off = rng.random((B_e, T, R), dtype=np.float32)
+            got = su_ops.segment_usage_lanes(nd, cuda(off), mk, N).cpu()
+            nd_h, mk_h = nd.cpu().numpy(), mk.cpu().numpy()
+            for b in range(B_e):
+                keep = mk_h[b] & (nd_h[b] >= 0)
+                want = np.zeros((N, R), np.float32)
+                np.add.at(want, nd_h[b][keep], off[b][keep])
+                assert np.array_equal(got[b].numpy(), want), \
+                    f"E {label} B={B_e} lane {b}: off-grid not bitwise"
+                e_err = max(e_err, float(np.abs(got[b].numpy() - want).max()))
+            print(f"E segment_usage {label} B={B_e} T={T} -> N={N} V={R} "
+                  f"(one launch): bitwise against the plain version on "
+                  f"grid data and against the host's task-order f32 sum "
+                  f"off the grid")
     results["segment_usage"]["max_abs_err"] = e_err
-    print(f"E segment_usage T={T} -> N={N}: bitwise on grid, off-grid max "
-          f"abs err {e_err:.3g} (rtol 1e-6)")
 
     # fleet shapes, B=8 lanes: A with its lane axis, B with a per-lane
     # flag, D with lanes of all three families in each mode
@@ -513,7 +549,9 @@ def main(argv=None) -> int:
         return x, w, lab
 
     cx, cw, clab = ce_inputs()
+    n_tc = ce_ops.fused_ce_cuda.launches_tc
     nll_k, lse_k = ce_ops.fused_ce_with_lse(cx, cw, clab, ce_V)
+    assert ce_ops.fused_ce_cuda.launches_tc == n_tc + 1, "G: not the TC body"
     nll_r, lse_r = fused_ce_ref(cx, cw, clab, ce_V)
     torch.cuda.synchronize()
     g_err = max(float((nll_k - nll_r).abs().max()),
@@ -522,19 +560,22 @@ def main(argv=None) -> int:
     assert g_err <= 2e-3, f"G bf16: max abs err {g_err} > 2e-3"
     assert not bool(nll_k[clab < 0].any()), "G: ignored labels not 0"
     results["fused_ce"]["max_abs_err"] = g_err
-    print(f"G fused_ce T={ce_T} d={ce_d} Vp={ce_Vp} V={ce_V} bf16: nll and "
-          f"lse max abs err {g_err:.3g} (<= 2e-3), ignored labels exactly 0")
+    print(f"G fused_ce T={ce_T} d={ce_d} Vp={ce_Vp} V={ce_V} bf16 "
+          f"(body: {G_TC_BODY}): nll and lse max abs err {g_err:.3g} "
+          f"(<= 2e-3), ignored labels exactly 0")
     gx = torch.randn((200, 256), generator=fg, device=dev)
     gw = torch.randn((4096, 256), generator=fg, device=dev)
     glab = torch.randint(-1, 4000, (200,), generator=fg, device=dev,
                          dtype=torch.int32)
+    n_tc = ce_ops.fused_ce_cuda.launches_tc
     got = ce_ops.fused_ce_with_lse(gx, gw, glab, 4000)
+    assert ce_ops.fused_ce_cuda.launches_tc == n_tc, "G f32: not SIMT"
     want = fused_ce_ref(gx, gw, glab, 4000)
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     assert err <= 1e-4, f"G f32 ragged: max abs err {err} > 1e-4"
-    print(f"G fused_ce T=200 d=256 Vp=4096 V=4000 f32: nll and lse max abs "
-          f"err {err:.3g} (<= 1e-4)")
+    print(f"G fused_ce T=200 d=256 Vp=4096 V=4000 f32 (body: SIMT): nll "
+          f"and lse max abs err {err:.3g} (<= 1e-4)")
     del cx, cw, clab, nll_k, lse_k, nll_r, lse_r, gx, gw, glab, got, want
 
     # ---- 4. the main path at cell A -----------------------------------
@@ -571,8 +612,7 @@ def main(argv=None) -> int:
           f"{t_parse:.1f}s; parser: {parser.stats}")
     assert parser.stats.slot_overflow == 0, "slot_overflow in the parse"
 
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     sim = Simulation(cfg, iter(windows), scheduler="greedy",
                      batch_windows=32, device=dev)
     t0 = time.time()
@@ -599,8 +639,7 @@ def main(argv=None) -> int:
     assert launches["segment_usage"] >= 2, launches
     del state, sim
 
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     ff_windows = 8
     sim_ff = Simulation(cfg, iter(windows[:ff_windows]),
                         scheduler="first_fit", batch_windows=ff_windows,
@@ -658,8 +697,7 @@ def main(argv=None) -> int:
                           scheduler="round_robin", arrival_rate=1.5),
              ScenarioSpec(name=PLUGIN, scheduler=PLUGIN)]
     assert len(specs) == FLEET_B
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     fleet = ScenarioFleet(fcfg, iter(fleet_ws), specs, batch_windows=32,
                           device=dev)
     t0 = time.time()
@@ -774,8 +812,7 @@ def main(argv=None) -> int:
     engine.generate(prompts, 2)        # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     gen_ms, out_k = timed_ms(lambda: engine.generate(prompts, SERVE_GEN))
     launches_serve = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated(dev)
@@ -921,8 +958,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     losses = [train_step(0)]               # warm-up
     warm_s = time.time() - t0
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     step_ms = []
     for i in range(1, 1 + TRAIN_TIMED):
         torch.cuda.synchronize()
@@ -931,9 +967,12 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         step_ms.append((time.time() - t0) * 1e3)
     launches_train = {name: fn.launches for name, fn in counters.items()}
+    g_tc = ce_ops.fused_ce_cuda.launches_tc
     peak = torch.cuda.max_memory_allocated(dev)
-    print(f"launches (train run, {TRAIN_TIMED} steps): {launches_train}")
+    print(f"launches (train run, {TRAIN_TIMED} steps): {launches_train}; "
+          f"G through its tensor-core body: {g_tc}")
     assert launches_train["fused_ce"] == TRAIN_TIMED, launches_train
+    assert g_tc == TRAIN_TIMED, f"G's TC body launched {g_tc} times"
     assert all(launches_train[k] > 0 for k in TRAIN_PATH), launches_train
     assert all(np.isfinite(losses)), losses
     med_ms = float(np.median(step_ms))
@@ -1066,6 +1105,26 @@ def main(argv=None) -> int:
     print(f"time constraint_match (fleet B={Bf}, one launch): kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
           f"({b_by}) [{smi}]")
+    # E with its lane axis at the fleet's shapes (B=8, V=3, one launch);
+    # the library yardstick is index_add_ over the same lanes, flattened
+    el_node, el_vals, el_mask = e_lanes[:3]
+    el_idx = (torch.where(el_mask & (el_node >= 0), el_node.long(), N)
+              + torch.arange(Bf, device=dev)[:, None] * (N + 1)).reshape(-1)
+    el_flat = el_vals.reshape(-1, R)
+    ms = time_ms(torch, lambda: su_ops.segment_usage_lanes(*e_lanes), 10)
+    plain_ms = time_ms(torch, lambda: segment_usage_lanes_ref(*e_lanes), 5,
+                       warmup=1)
+    lib_ms = time_ms(torch, lambda: torch.zeros(
+        Bf * (N + 1), R, device=dev).index_add_(0, el_idx, el_flat), 10)
+    b_ms, b_by = bound_ms(nbytes(el_node, el_vals, el_mask) + Bf * N * R * 4,
+                          int((el_mask & (el_node >= 0)).sum()) * R)
+    results["segment_usage"]["fleet"] = dict(
+        lanes=Bf, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+        bound_by=b_by)
+    print(f"time segment_usage (fleet B={Bf} V={R}, one launch): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+          f"(index_add_ over the {Bf} lanes), launches per resync 2, bound "
+          f"{b_ms:.4f} ms ({b_by}) [{smi}]")
     # F at the serving path's shape; the library yardstick is PyTorch's
     # scaled_dot_product_attention on the same tensors (head-major views)
     Bq, Sq, Hq, Dq = f_shape
@@ -1109,7 +1168,8 @@ def main(argv=None) -> int:
                           2 * ce_T * ce_Vp * ce_d, BF16_OPS_PER_S)
     results["fused_ce"].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                bound_ms=b_ms, bound_by=b_by)
-    print(f"time fused_ce (train T={ce_T} d={ce_d} Vp={ce_Vp} bf16): kernel "
+    print(f"time fused_ce (train T={ce_T} d={ce_d} Vp={ce_Vp} bf16, body: "
+          f"{G_TC_BODY}): kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
           f"(two calls: linear + cross_entropy), launches per train step "
           f"{launches_train['fused_ce'] / TRAIN_TIMED:.4g}, bound "
@@ -1142,7 +1202,9 @@ def main(argv=None) -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **({"fleet": r["fleet"]} if "fleet" in r else {})})
+            **({"fleet": r["fleet"]} if "fleet" in r else {}),
+            **({"body": G_TC_BODY, "launches_tc": g_tc}
+               if name == "fused_ce" else {})})
     print("kernels: " + " ".join(f"{t['name']}=ok(cuda)" for t in table))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -51,7 +51,7 @@ from repro_torch.core.events import (REMOVE_REASON_EVICT, EventKind,
 from repro_torch.core.scatter import add_rows, set_rows_, take
 from repro_torch.core.state import (SimState, TASK_EMPTY, TASK_PENDING,
                                     TASK_RUNNING, drop, lift)
-from repro_torch.kernels.segment_usage.ops import segment_usage
+from repro_torch.kernels.segment_usage.ops import segment_usage_lanes
 
 Stats = Dict[str, torch.Tensor]
 
@@ -181,17 +181,14 @@ def evict_invalid(state: SimState, cfg: SimConfig) -> SimState:
 
 def recompute_accounting(state: SimState, cfg: SimConfig) -> SimState:
     """node_reserved / node_used from the task table (segment-usage kernel,
-    one launch per lane and tally): the inner loop in full-recompute mode,
-    the periodic resync under incremental accounting."""
+    one launch per tally for all lanes): the inner loop in full-recompute
+    mode, the periodic resync under incremental accounting."""
     running = state.task_state == TASK_RUNNING
-    used_cols = accounted_usage(state.task_usage)
-    lanes = range(state.task_state.shape[0])
-    reserved = torch.stack([
-        segment_usage(state.task_node[b], state.task_req[b], running[b],
-                      cfg.max_nodes) for b in lanes])
-    used = torch.stack([
-        segment_usage(state.task_node[b], used_cols[b], running[b],
-                      cfg.max_nodes) for b in lanes])
+    reserved = segment_usage_lanes(state.task_node, state.task_req, running,
+                                   cfg.max_nodes)
+    used = segment_usage_lanes(state.task_node,
+                               accounted_usage(state.task_usage), running,
+                               cfg.max_nodes)
     return state._replace(node_reserved=reserved, node_used=used)
 
 

@@ -14,27 +14,52 @@
 // Bound on this card: at qwen3-4b's training shape (T=2,048, d=2,560,
 // Vp=152,064, bf16) the products are 1.595 TFLOP (1.61 ms at 989 TFLOP/s
 // on bf16 tensor cores) against 0.79 GB of x and W read once (0.24 ms at
-// 3.35 TB/s), so the operations bound it. This first kernel computes in
-// f32 with scalar multiply-adds (__fmaf_rn, explicit since the library is
-// built with --fmad=false) and sits far above that bound; mma.sync or wgmma
-// on bf16 tiles is later work.
+// 3.35 TB/s), so the operations bound it.
 //
-// Design: a block of 256 threads owns 64 token rows and one contiguous
-// range of vocab tiles (a split); the grid is (row tiles, splits), with
-// enough splits to fill the card even when T is small. For each 64-column
-// tile it stages 32-wide slices of x and W in shared memory as f32
+// Two bodies write the same per-split partial statistics; a second small
+// kernel (fused_ce_combine_kernel) merges the splits of each row and
+// writes nll and lse. The wrapper picks the body from dtype and shape.
+//
+// Tensor-core body (fused_ce_tc_kernel; bf16 with d % 8 == 0, every model
+// shape): a block owns 128 token rows and a split of the 256-column vocab
+// tiles. One producer thread brings 64-wide slices of the block's x rows
+// and of the tile's W rows into a ring of 4 stages (48 KB each, 128-byte
+// swizzled) with TMA (cp.async.bulk.tensor, zero-filled past T, Vp and d),
+// mbarriers saying when a stage is full and when it is free again. Two
+// consumer warpgroups, 64 rows each, run wgmma m64n256k16 (bf16 operands
+// K-major from shared memory, f32 accumulators in 128 registers a thread)
+// over the slices; setmaxnreg gives them 232 registers and the producer
+// 40. The epilogue of each tile runs in registers: mask the columns (past
+// Vp absent, in [V, Vp) -1e30), pick the label by comparing its column (a
+// tile that holds it only), and fold the tile into each thread's own
+// running (m, s, picked) for its two rows with expf (no log2 prescale);
+// the four lanes of a quad, which share rows, merge their states once at
+// the end with two __shfl_xor_sync. W is read from device memory about
+// once: the grid's x index is the row tile, so the 16 row tiles of one
+// split start together and walk the same W tiles in step, and L2 serves
+// the other 15 reads (at most ~9 splits are resident, ~12 MB of W tiles
+// plus x's 10.5 MB, inside the 50 MB L2). A persistent block per vocab
+// range with all rows' statistics in shared memory would read W once by
+// construction but re-stream x per row tile and idle most SMs at small T;
+// TMA multicast across a cluster is later work.
+//
+// SIMT body (fused_ce_partial_kernel; f32, where TF32 would miss the 1e-4
+// bar, and bf16 with d % 8 != 0, which TMA's 16-byte strides refuse): a
+// block of 256 threads owns 64 token rows and a split of the 64-column
+// vocab tiles; it stages 32-wide slices of x and W in shared memory as f32
 // (k-major, so a thread reads its 4 rows and 4 columns as two float4) and
-// accumulates the 64x64 logits in registers (4x4 a thread). The epilogue
-// of each tile masks the columns, picks the label by comparing the column
-// index with it (no gather), and folds the tile into each thread's own
-// running (m, s, picked) for its 4 rows; the 16 lanes that share rows merge
-// theirs with shuffles once, at the end. A second small kernel merges the
-// splits of each row and writes nll and lse. Both launch from one entry
-// point, on the caller's stream, into buffers the wrapper allocates.
+// accumulates the 64x64 logits with scalar multiply-adds (__fmaf_rn,
+// explicit since the library is built with --fmad=false), 4x4 a thread,
+// folding each tile into per-thread running statistics that the 16 lanes
+// sharing rows merge with shuffles at the end.
 
+#include <cuda.h>          // CUtensorMap and its enums; the encoder is
+                           // looked up in libcuda at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -200,6 +225,335 @@ int launch_typed(const void* x, const void* w, const int* labels,
   return (int)cudaGetLastError();
 }
 
+
+// ---- tensor-core body ---------------------------------------------------
+
+namespace tc {
+
+constexpr int BM = 128;                  // token rows a block (2 x 64)
+constexpr int BN = 256;                  // vocab columns a tile
+constexpr int BK = 64;                   // d a stage: one 128-byte row
+constexpr int STAGES = 4;
+constexpr int A_BYTES = BM * BK * 2;     // x slice, 16 KB
+constexpr int B_BYTES = BN * BK * 2;     // W slice, 32 KB
+constexpr int THREADS = 384;             // 2 consumer warpgroups, 1 producer
+constexpr int SMEM = 1024 + STAGES * (A_BYTES + B_BYTES) + 2 * STAGES * 8;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the barrier's phase of this parity has completed; a wait of
+// ~10 s (a lost arrival) traps, so a fault ends the launch with an error.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    if (clock64() - t0 > (1LL << 34)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 2-D tensor map into shared memory; the mbarrier counts its
+// bytes (the whole box, zero-filled where it leaves the tensor).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c_inner,
+                                         int c_outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c_inner),
+      "r"(c_outer)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major operand in 128-byte swizzled rows: start
+// address, leading offset 16 B (unused with this swizzle), 1,024 B between
+// groups of 8 rows, swizzle mode 128B.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The accumulators are written by wgmma behind the compiler's back: tie
+// every read after a wait to the wait.
+__device__ __forceinline__ void fence_regs(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__global__ void __launch_bounds__(THREADS, 1) fused_ce_tc_kernel(
+    const __grid_constant__ CUtensorMap tm_x,
+    const __grid_constant__ CUtensorMap tm_w, const int* __restrict__ labels,
+    float* __restrict__ pm, float* __restrict__ ps, float* __restrict__ pp,
+    int n_tok, int D, int Vp, int V, int tiles_per_split) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t a_base = base;
+  const uint32_t b_base = base + STAGES * A_BYTES;
+  const uint32_t full_bar = base + STAGES * (A_BYTES + B_BYTES);
+  const uint32_t empty_bar = full_bar + STAGES * 8;
+  const int row0 = blockIdx.x * BM;
+  const int n_tiles = (Vp + BN - 1) / BN;
+  const int tile_lo = blockIdx.y * tiles_per_split;
+  const int tile_hi = min(n_tiles, tile_lo + tiles_per_split);
+  const int n_k = (D + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);       // the producer's expect_tx
+      mbar_init(empty_bar + 8 * s, 2);      // one arrival per consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = tile_lo; tile < tile_hi; ++tile) {
+        for (int kc = 0; kc < n_k; ++kc) {
+          mbar_wait(empty_bar + 8 * stage, phase ^ 1u);
+          const uint32_t fb = full_bar + 8 * stage;
+          mbar_expect_tx(fb, A_BYTES + B_BYTES);
+          tma_load(a_base + stage * A_BYTES, &tm_x, fb, kc * BK, row0);
+          tma_load(b_base + stage * B_BYTES, &tm_w, fb, kc * BK, tile * BN);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1u;
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns rows [row0 + 64 wg, +64)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int r_lo = row0 + wg * 64 + (t / 32) * 16 + lane / 4;
+    const int cq = 2 * (lane % 4);          // first column of the thread
+    int lab[2];
+    float m[2], s[2], p[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_lo + 8 * h;
+      lab[h] = r < n_tok ? labels[r] : -1;
+      m[h] = NEG;
+      s[h] = 0.0f;
+      p[h] = 0.0f;
+    }
+    float d[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+
+    int stage = 0, prev = 0;
+    uint32_t phase = 0;
+    for (int tile = tile_lo; tile < tile_hi; ++tile) {
+      const int col0 = tile * BN;
+      for (int kc = 0; kc < n_k; ++kc) {
+        mbar_wait(full_bar + 8 * stage, phase);
+        const uint32_t a = a_base + stage * A_BYTES + wg * 64 * (BK * 2);
+        const uint32_t b = b_base + stage * B_BYTES;
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int k = 0; k < BK / 16; ++k)
+          wgmma_m64n256k16(d, desc_sw128(a + 32 * k), desc_sw128(b + 32 * k),
+                           (kc | k) != 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // the previous slice's products are done: free its stage
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        if (kc > 0 && t == 0) mbar_arrive(empty_bar + 8 * prev);
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_regs(d);
+      if (t == 0) mbar_arrive(empty_bar + 8 * prev);
+
+      // epilogue: d[4j + 2h + e] is row r_lo + 8h, column col0 + 8j + cq + e
+      const bool ragged = col0 + BN > V;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (ragged) {
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = col0 + 8 * j + cq + e;
+              float& l = d[4 * j + 2 * h + e];
+              if (c >= Vp) l = -INFINITY;    // past the array: no column
+              else if (c >= V) l = NEG;      // vocab padding
+            }
+        }
+        if (lab[h] >= col0 && lab[h] < col0 + BN) {
+          const int rel = lab[h] - col0 - cq;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (8 * j + e == rel) p[h] += d[4 * j + 2 * h + e];
+        }
+        float tmax = m[h];
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) tmax = fmaxf(tmax, d[4 * j + 2 * h + e]);
+        float si = s[h] * expf(m[h] - tmax);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) si += expf(d[4 * j + 2 * h + e] - tmax);
+        s[h] = si;
+        m[h] = tmax;
+      }
+    }
+
+    // the quad's four lanes hold the same two rows: merge their states
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mm = m[h];
+      mm = fmaxf(mm, __shfl_xor_sync(FULL, mm, 1));
+      mm = fmaxf(mm, __shfl_xor_sync(FULL, mm, 2));
+      float ss = s[h] * expf(m[h] - mm), pk = p[h];
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        ss += __shfl_xor_sync(FULL, ss, off);
+        pk += __shfl_xor_sync(FULL, pk, off);
+      }
+      const int r = r_lo + 8 * h;
+      if (lane % 4 == 0 && r < n_tok) {
+        const long long o = (long long)blockIdx.y * n_tok + r;
+        pm[o] = mm;
+        ps[o] = ss;
+        pp[o] = pk;
+      }
+    }
+  }
+}
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled from the libcuda that PyTorch already loaded
+// (this library links only the CUDA runtime).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
+    if (h != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// A (rows, D) row-major bf16 matrix, read in boxes of box_rows x 64.
+bool encode(CUtensorMap* map, const void* ptr, int rows, int D,
+            int box_rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // x (n_tok, D), w (Vp, D) contiguous, f32 (dtype 0) or bf16 (dtype 1);
@@ -233,4 +587,45 @@ extern "C" int fused_ce_launch(const void* x, const void* w,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The tensor-core body: x (n_tok, D) and w (Vp, D) contiguous bf16 with D
+// a multiple of 8 and 16-byte aligned bases; the rest as fused_ce_launch,
+// with 256-column vocab tiles: n_split * tiles_per_split >= ceil(Vp / 256)
+// > (n_split - 1) * tiles_per_split.
+extern "C" int fused_ce_tc_launch(const void* x, const void* w,
+                                  const void* labels, void* nll, void* lse,
+                                  void* scratch, int n_tok, int D, int Vp,
+                                  int V, int n_split, int tiles_per_split,
+                                  void* stream) {
+  const int n_tiles = (Vp + tc::BN - 1) / tc::BN;
+  if (n_tok < 1 || D < 8 || D % 8 != 0 || Vp < 1 || V < 0 || n_split < 1 ||
+      n_split > 65535 || tiles_per_split < 1 ||
+      (long long)n_split * tiles_per_split < n_tiles ||
+      (long long)(n_split - 1) * tiles_per_split >= n_tiles ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tm_x, tm_w;
+  if (!tc::encode(&tm_x, x, n_tok, D, tc::BM) ||
+      !tc::encode(&tm_w, w, Vp, D, tc::BN))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      tc::fused_ce_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tc::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* lab = static_cast<const int*>(labels);
+  float* pm = static_cast<float*>(scratch);
+  float* ps = pm + (long long)n_split * n_tok;
+  float* pp = ps + (long long)n_split * n_tok;
+  const dim3 grid((n_tok + tc::BM - 1) / tc::BM, n_split);
+  tc::fused_ce_tc_kernel<<<grid, tc::THREADS, tc::SMEM, st>>>(
+      tm_x, tm_w, lab, pm, ps, pp, n_tok, D, Vp, V, tiles_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fused_ce_combine_kernel<<<(n_tok + 255) / 256, 256, 0, st>>>(
+      pm, ps, pp, lab, static_cast<float*>(nll), static_cast<float*>(lse),
+      n_tok, n_split);
+  return (int)cudaGetLastError();
 }

@@ -31,6 +31,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "--fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+# -ldl: kernel G looks its tensor-map encoder up in libcuda with dlsym
+LINK_FLAGS = ["-ldl"]
 LIB_NAME = "librepro_torch_kernels.so"
 
 P = ctypes.c_void_p
@@ -47,10 +49,11 @@ SIGNATURES: Dict[str, List] = {
                             I, I, I, I, I, P],
     "window_stats_launch": [P, P, P, P, P, P, P, P, P, P, P, P, P,
                             I, I, I, I, I, I, P],
-    "segment_usage_launch": [P, P, P, P, I, I, I, P],
+    "segment_usage_launch": [P, P, P, P, P, L, I, I, I, I, P],
     "flash_attention_launch": [P, P, P, P, L, L, L, L, L, L, L, L, L,
                                I, I, I, I, I, I, F, P],
     "fused_ce_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "fused_ce_tc_launch": [P, P, P, P, P, P, I, I, I, I, I, I, P],
 }
 
 _lock = threading.Lock()
@@ -79,7 +82,7 @@ def _nvcc() -> str:
 
 
 def _digest(sources: List[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for s in sources + sorted(CSRC.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
@@ -115,7 +118,7 @@ def build() -> Path:
     tmp = out / (LIB_NAME + f".tmp{os.getpid()}")
     link = subprocess.run(
         [nvcc, "-shared", "-o", str(tmp),
-         *[str(o) for _, o, _ in procs]],
+         *[str(o) for _, o, _ in procs], *LINK_FLAGS],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")

@@ -1,5 +1,6 @@
 """Dispatch for the fused cross-entropy kernel (kernel G): CUDA tensors
-launch ``csrc/fused_ce.cu``, CPU tensors take the plain version.
+launch ``csrc/fused_ce.cu`` (its tensor-core body for bf16 with d % 8 ==
+0, its SIMT body otherwise), CPU tensors take the plain version.
 
 :class:`FusedCEMean` is the training loss built on it: the forward is the
 kernel (the plain version on the CPU), the backward plain PyTorch chunked
@@ -16,24 +17,38 @@ from repro_torch.kernels.fused_ce.ref import NEG, fused_ce_ref
 
 #: dtype codes of the C entry point
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-BLOCK_T, BLOCK_V = 64, 64        # the kernel's token rows and vocab columns
-BLOCKS_PER_SM = 8                # splits of the vocab fill ~8 blocks an SM
+BLOCK_T, BLOCK_V = 64, 64        # the SIMT body's token rows, vocab columns
+BLOCKS_PER_SM = 8                # its splits of the vocab fill ~8 blocks an SM
+TC_BLOCK_T, TC_BLOCK_V = 128, 256  # the tensor-core body's tile
+TC_BLOCKS_PER_SM = 4             # its splits: 4 waves of one block an SM
 
 
-def _splits(n_tok: int, Vp: int, n_sms: int) -> Tuple[int, int]:
+def _splits(n_tok: int, Vp: int, n_sms: int, block_t: int = BLOCK_T,
+            block_v: int = BLOCK_V, per_sm: int = BLOCKS_PER_SM
+            ) -> Tuple[int, int]:
     """(splits of the vocab tiles, tiles per split): enough blocks to fill
     the card when T is small, every split non-empty."""
-    n_tiles = -(-Vp // BLOCK_V)
-    row_tiles = -(-n_tok // BLOCK_T)
-    want = max(1, min(n_tiles, -(-BLOCKS_PER_SM * n_sms // row_tiles)))
+    n_tiles = -(-Vp // block_v)
+    row_tiles = -(-n_tok // block_t)
+    want = max(1, min(n_tiles, -(-per_sm * n_sms // row_tiles)))
     per = -(-n_tiles // want)
     return -(-n_tiles // per), per
+
+
+def uses_tensor_cores(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether a call takes the tensor-core body: bf16 with d % 8 == 0 and
+    16-byte aligned bases (TMA's stride and address rules); f32 (where TF32
+    would miss the f32 bar) and other bf16 shapes take the SIMT body."""
+    return (x.dtype == torch.bfloat16 and x.shape[1] % 8 == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
 def fused_ce_cuda(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                   vocab_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel itself: x (T, d) and w (Vp, d) contiguous CUDA tensors,
-    both f32 or both bf16, labels (T,) int32 -> (nll (T,), lse (T,)) f32."""
+    both f32 or both bf16, labels (T,) int32 -> (nll (T,), lse (T,)) f32.
+    ``launches`` counts every launch, ``launches_tc`` those of the
+    tensor-core body."""
     T, d = x.shape
     Vp = w.shape[0]
     if x.dtype not in DTYPE_CODES:
@@ -48,16 +63,28 @@ def fused_ce_cuda(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     if T == 0:
         return nll, lse
     n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    n_split, per = _splits(T, Vp, n_sms)
+    tc = uses_tensor_cores(x, w)
+    if tc:
+        n_split, per = _splits(T, Vp, n_sms, TC_BLOCK_T, TC_BLOCK_V,
+                               TC_BLOCKS_PER_SM)
+    else:
+        n_split, per = _splits(T, Vp, n_sms)
     scratch = torch.empty(3 * n_split * T, dtype=torch.float32,
                           device=x.device)
-    _build.launch("fused_ce_launch", x, w, labels, nll, lse, scratch, T, d,
-                  Vp, int(vocab_size), n_split, per, DTYPE_CODES[x.dtype])
+    if tc:
+        _build.launch("fused_ce_tc_launch", x, w, labels, nll, lse, scratch,
+                      T, d, Vp, int(vocab_size), n_split, per)
+        fused_ce_cuda.launches_tc += 1
+    else:
+        _build.launch("fused_ce_launch", x, w, labels, nll, lse, scratch, T,
+                      d, Vp, int(vocab_size), n_split, per,
+                      DTYPE_CODES[x.dtype])
     fused_ce_cuda.launches += 1
     return nll, lse
 
 
 fused_ce_cuda.launches = 0
+fused_ce_cuda.launches_tc = 0
 
 
 def fused_ce_with_lse(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,

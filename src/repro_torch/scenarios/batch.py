@@ -208,5 +208,6 @@ def run_scenarios(state: SimState, windows: EventWindow, knobs: ScenarioKnobs,
 def resync_fleet(state: SimState, cfg: SimConfig) -> SimState:
     """Per-lane full recompute of both accounting tallies — the fleet
     driver's periodic drift resync under incremental accounting (kernel E,
-    one launch per lane and tally, every ``resync_windows`` windows)."""
+    one launch per tally for all lanes, every ``resync_windows``
+    windows)."""
     return eng.recompute_accounting(state, cfg)

@@ -34,7 +34,7 @@ from repro_torch.core.events import EventKind, EventWindow
 from repro_torch.core.scatter import add_rows, take
 from repro_torch.core.state import (SimState, TASK_EMPTY, TASK_PENDING,
                                     TASK_RUNNING)
-from repro_torch.kernels.segment_usage.ops import segment_usage
+from repro_torch.kernels.segment_usage.ops import segment_usage_lanes
 from repro_torch.scenarios.spec import ScenarioKnobs
 
 # distinct per-knob salt offsets so one slot's fates are independent draws
@@ -263,8 +263,8 @@ def storm_debit(state: SimState, victim: torch.Tensor, cum, cfg: SimConfig
     Capped storms compact the victim rows first — ``searchsorted`` over the
     victim cumsum finds the j-th victim's row for every compact slot j < V
     — and debit them with one O(B*V) delta scatter. Uncapped configs take
-    the masked segment sum (kernel E, one launch per lane) over the whole
-    task table.
+    the masked segment sum (kernel E, one launch for all lanes) over the
+    whole task table.
     """
     T = cfg.max_tasks
     V = cfg.resolved_storm_max_victims
@@ -272,9 +272,8 @@ def storm_debit(state: SimState, victim: torch.Tensor, cum, cfg: SimConfig
         R = state.task_req.shape[-1]
         vals = torch.cat([state.task_req,
                           accounted_usage(state.task_usage)], dim=-1)
-        sub = torch.stack([
-            segment_usage(state.task_node[b], vals[b], victim[b],
-                          cfg.max_nodes) for b in range(vals.shape[0])])
+        sub = segment_usage_lanes(state.task_node, vals, victim,
+                                  cfg.max_nodes)
         return state._replace(
             node_reserved=state.node_reserved - sub[..., :R],
             node_used=state.node_used - sub[..., R:])

@@ -182,3 +182,38 @@ def test_vocab_splits_cover_the_tiles_exactly(T, Vp, sms):
     n_tiles = -(-Vp // ops.BLOCK_V)
     assert n_split * per >= n_tiles > (n_split - 1) * per
     assert 1 <= n_split <= 65535
+
+
+@pytest.mark.parametrize("T,Vp,sms", [(2048, 152064, 132), (1, 64, 132),
+                                      (200, 1000, 132), (5000, 64, 8),
+                                      (513, 4096, 132)])
+def test_tensor_core_splits_cover_its_tiles_exactly(T, Vp, sms):
+    n_split, per = ops._splits(T, Vp, sms, ops.TC_BLOCK_T, ops.TC_BLOCK_V,
+                               ops.TC_BLOCKS_PER_SM)
+    n_tiles = -(-Vp // ops.TC_BLOCK_V)
+    assert n_split * per >= n_tiles > (n_split - 1) * per
+    assert 1 <= n_split <= 65535
+
+
+def test_tensor_core_splits_at_the_training_shape():
+    """qwen3-4b's training shape on 132 SMs: 16 row tiles x 33 splits of 18
+    vocab tiles, 528 blocks, four full waves of one block an SM."""
+    n_split, per = ops._splits(2048, 152064, 132, ops.TC_BLOCK_T,
+                               ops.TC_BLOCK_V, ops.TC_BLOCKS_PER_SM)
+    assert (n_split, per) == (33, 18)
+    assert -(-2048 // ops.TC_BLOCK_T) * n_split == 4 * 132
+
+
+@pytest.mark.parametrize("dtype,d,tc", [(torch.bfloat16, 2560, True),
+                                        (torch.bfloat16, 8, True),
+                                        (torch.bfloat16, 12, False),
+                                        (torch.float32, 2560, False),
+                                        (torch.float32, 8, False)])
+def test_body_choice_by_dtype_and_shape(dtype, d, tc):
+    """The tensor-core body takes bf16 with d % 8 == 0; f32 and bf16 with
+    other d take the SIMT body, decided before any launch."""
+    x, w = torch.zeros(4, d, dtype=dtype), torch.zeros(16, d, dtype=dtype)
+    assert ops.uses_tensor_cores(x, w) is tc
+    if tc:     # a base off 16 bytes cannot be a TMA address
+        assert not ops.uses_tensor_cores(
+            torch.zeros(4 * d + 1, dtype=dtype)[1:].view(4, d), w)

@@ -3,10 +3,12 @@ that are not tile multiples and with more than one lane (kernel D with mixed
 families and per-lane modes, kernel B's per-lane flag, kernel A's lane
 axis; kernel F in f32 and bf16, causal and full, head dims 16-128, S a
 multiple of the tile or not, strided inputs); the engine and the scenario
-fleet (both dispatch paths), the LM serving path with kernel F, and kernel
-G (the fused cross-entropy: small ragged shapes, qwen3-4b's training
-shape, the gradients of the loss built on it, one train step), on the card
-against the CPU path or the plain version. Skipped without a CUDA device; on the card
+fleet (both dispatch paths), the LM serving path with kernel F, kernel E's
+lane form (B=1 and 8, V of 1-8, skewed and empty cases, and off-grid data
+at cell-A shape against the host's task-order f32 sum), and kernel G (the
+fused cross-entropy: small ragged shapes, which body serves which call,
+qwen3-4b's training shape, the gradients of the loss built on it, one
+train step), on the card against the CPU path or the plain version. Skipped without a CUDA device; on the card
 (where JAX, which tests/conftest.py imports, need not be installed):
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
@@ -40,7 +42,8 @@ from repro_torch.kernels.constraint_match.ref import constraint_match_ref
 from repro_torch.kernels.placement_commit import ops as pc_ops
 from repro_torch.kernels.placement_commit.ref import placement_commit_ref
 from repro_torch.kernels.segment_usage import ops as su_ops
-from repro_torch.kernels.segment_usage.ref import segment_usage_ref
+from repro_torch.kernels.segment_usage.ref import (segment_usage_lanes_ref,
+                                                   segment_usage_ref)
 from repro_torch.kernels.window_stats import ops as ws_ops
 from repro_torch.kernels.window_stats.ref import window_reductions_ref
 from repro_torch.sched import get_scheduler
@@ -179,6 +182,69 @@ def test_segment_usage(dev, T, N, V):
     mask = torch.from_numpy(r.random(T) < 0.6).to(dev)
     assert torch.equal(su_ops.segment_usage(node, vals, mask, N),
                        segment_usage_ref(node, vals, mask, N))
+
+
+def _su_lanes(r, B, T, N, V, kind):
+    """Kernel E's lane-form inputs on grid data: uniform nodes (some -1),
+    every task on one node, a Zipf draw over the nodes, or an empty mask."""
+    if kind == "one_node":
+        node = np.full((B, T), N - 1, np.int32)
+    elif kind == "zipf":
+        node = np.minimum(r.zipf(1.3, (B, T)) - 1, N - 1).astype(np.int32)
+    else:
+        node = r.integers(-1, N, (B, T)).astype(np.int32)
+    mask = (np.zeros((B, T), bool) if kind == "empty"
+            else r.random((B, T)) < 0.7)
+    return (torch.from_numpy(node), _g(r, 0, 48, (B, T, V)),
+            torch.from_numpy(mask))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "one_node", "zipf", "empty"])
+@pytest.mark.parametrize("V", [1, 3, 6, 8])
+@pytest.mark.parametrize("B,T,N", [(1, 5003, 1000), (8, 3001, 12500)])
+def test_segment_usage_lanes(dev, B, T, N, V, kind):
+    """One launch for all lanes, bitwise against the plain lane form on
+    grid data; T a multiple of no tile, skewed and empty cases."""
+    r = np.random.default_rng(B * T + V)
+    node, vals, mask = (x.to(dev) for x in _su_lanes(r, B, T, N, V, kind))
+    before = su_ops.segment_usage_cuda.launches
+    got = su_ops.segment_usage_lanes(node, vals, mask, N)
+    assert su_ops.segment_usage_cuda.launches == before + 1
+    want = segment_usage_lanes_ref(node, vals, mask, N)
+    torch.cuda.synchronize()
+    assert got.shape == (B, N, V)
+    assert torch.equal(got, want)
+    if kind == "empty":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("kind", ["uniform", "zipf"])
+def test_segment_usage_off_grid_is_the_task_order_sum(dev, B, kind):
+    """Cell-A shape (T=262,144, N=12,500, V=3), off-grid values: bitwise
+    the host's f32 sequential sum in task order (np.add.at)."""
+    T, N, V = 262144, 12500, 3
+    r = np.random.default_rng(B + len(kind))
+    node, _, mask = _su_lanes(r, B, T, N, V, kind)
+    vals = r.random((B, T, V), dtype=np.float32)
+    got = su_ops.segment_usage_lanes(node.to(dev), torch.from_numpy(vals)
+                                     .to(dev), mask.to(dev), N).cpu().numpy()
+    for b in range(B):
+        keep = mask[b].numpy() & (node[b].numpy() >= 0)
+        want = np.zeros((N, V), np.float32)
+        np.add.at(want, node[b].numpy()[keep], vals[b][keep])
+        np.testing.assert_array_equal(got[b], want)
+
+
+def test_segment_usage_refuses_what_it_does_not_take(dev):
+    node = torch.zeros((1, 10), dtype=torch.int32, device=dev)
+    mask = torch.ones((1, 10), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):      # V > 8
+        su_ops.segment_usage_lanes(node, torch.zeros((1, 10, 9), device=dev),
+                                   mask, 4)
+    with pytest.raises(ValueError):      # node ids beyond two 7-bit digits
+        su_ops.segment_usage_lanes(node, torch.zeros((1, 10, 3), device=dev),
+                                   mask, 16385)
 
 
 def _soup(cfg, seed=0, n_windows=12, n_nodes=12, n_slots=80):
@@ -368,6 +434,30 @@ def test_fused_ce(dev, T, d, Vp, V, dtype):
     assert not nll[lab < 0].any()
 
 
+@pytest.mark.parametrize("dtype,d,tc", [(torch.bfloat16, 64, True),
+                                        (torch.bfloat16, 12, False),
+                                        (torch.float32, 64, False)])
+def test_fused_ce_body_by_dtype_and_shape(dev, dtype, d, tc):
+    """bf16 with d % 8 == 0 goes through the tensor-core body (its own
+    counter rises), f32 and bf16 with other d through the SIMT body; each
+    within 1e-4 of the plain version."""
+    T, Vp, V = 300, 1000, 990
+    g = torch.Generator(device=dev).manual_seed(d)
+    x = torch.randn((T, d), generator=g, device=dev).to(dtype)
+    w = torch.randn((Vp, d), generator=g, device=dev).to(dtype)
+    lab = torch.randint(-1, V, (T,), generator=g, device=dev,
+                        dtype=torch.int32)
+    n, n_tc = ce_ops.fused_ce_cuda.launches, ce_ops.fused_ce_cuda.launches_tc
+    nll, lse = ce_ops.fused_ce_with_lse(x, w, lab, V)
+    assert ce_ops.fused_ce_cuda.launches == n + 1
+    assert ce_ops.fused_ce_cuda.launches_tc == n_tc + int(tc)
+    want_nll, want_lse = fused_ce_ref(x, w, lab, V)
+    torch.cuda.synchronize()
+    assert (nll - want_nll).abs().max() <= 1e-4
+    assert (lse - want_lse).abs().max() <= 1e-4
+    assert not nll[lab < 0].any()
+
+
 def test_fused_ce_training_shape(dev):
     """qwen3-4b's training shape: T=2,048, d=2,560, Vp=152,064, V=151,936,
     bf16, a share of labels ignored."""
@@ -378,7 +468,9 @@ def test_fused_ce_training_shape(dev):
     lab = torch.randint(0, V, (T,), generator=g, device=dev,
                         dtype=torch.int32)
     lab[::7] = -1
+    n_tc = ce_ops.fused_ce_cuda.launches_tc
     nll, lse = ce_ops.fused_ce_with_lse(x, w, lab, V)
+    assert ce_ops.fused_ce_cuda.launches_tc == n_tc + 1
     want_nll, want_lse = fused_ce_ref(x, w, lab, V)
     torch.cuda.synchronize()
     assert (nll - want_nll).abs().max() <= 2e-3

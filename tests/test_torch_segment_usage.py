@@ -58,3 +58,78 @@ def test_off_grid_values():
     np.testing.assert_allclose(
         _port(node, vals, mask, 50),
         np.asarray(segment_usage_ref(node, vals, mask, 50)), rtol=1e-6)
+
+
+def _lane_inputs(seed, B, T, N, V, kind):
+    """Grid data for B lanes: uniform nodes (some -1), every task on one
+    node, a Zipf draw over the nodes, or an empty mask."""
+    r = np.random.default_rng(seed)
+    if kind == "one_node":
+        node = np.full((B, T), N // 2, np.int32)
+    elif kind == "zipf":
+        node = np.minimum(r.zipf(1.5, (B, T)) - 1, N - 1).astype(np.int32)
+    else:
+        node = r.integers(-1, N, (B, T)).astype(np.int32)
+    vals = (r.integers(0, 48, (B, T, V)) / 128).astype(np.float32)
+    mask = (np.zeros((B, T), bool) if kind == "empty"
+            else r.random((B, T)) < 0.7)
+    return node, vals, mask
+
+
+@pytest.mark.parametrize("kind", ["uniform", "one_node", "zipf", "empty"])
+@pytest.mark.parametrize("B,T,N,V", [(1, 96, 16, 3), (3, 100, 13, 6),
+                                     (4, 70, 9, 1), (2, 64, 16, 8)])
+def test_lanes_plain_matches_vmapped_reference(B, T, N, V, kind):
+    """The lane form of the plain version against jax.vmap of the
+    reference's segment_usage: its jnp oracle and its Pallas kernel in
+    interpret mode; grid data, so every order of the sums is exact."""
+    import jax
+    node, vals, mask = _lane_inputs(B * T + N + V, B, T, N, V, kind)
+    got = su_ops.segment_usage_lanes(torch.from_numpy(node),
+                                     torch.from_numpy(vals),
+                                     torch.from_numpy(mask), N).numpy()
+    assert got.shape == (B, N, V) and got.dtype == np.float32
+    want_ref = jax.vmap(lambda n, v, m: segment_usage_ref(n, v, m, N))(
+        node, vals, mask)
+    want_kernel = jax.vmap(lambda n, v, m: su_jax(
+        n, v, m, N, use_kernel=True, interpret=True, tile_t=32))(
+            node, vals, mask)
+    np.testing.assert_array_equal(got, np.asarray(want_ref))
+    np.testing.assert_array_equal(got, np.asarray(want_kernel))
+    if kind == "empty":
+        assert not got.any()
+
+
+def test_lanes_are_independent_and_single_lane_form_agrees():
+    """Lane b of the lane form equals the single-lane form on lane b's
+    inputs, off-grid data included (bitwise: the same sums in the same
+    order)."""
+    r = np.random.default_rng(7)
+    B, T, N, V = 3, 500, 20, 6
+    node = torch.from_numpy(r.integers(-1, N, (B, T)).astype(np.int32))
+    vals = torch.from_numpy(r.random((B, T, V)).astype(np.float32))
+    mask = torch.from_numpy(r.random((B, T)) < 0.6)
+    got = su_ops.segment_usage_lanes(node, vals, mask, N)
+    for b in range(B):
+        assert torch.equal(got[b],
+                           su_ops.segment_usage(node[b], vals[b], mask[b], N))
+
+
+@pytest.mark.parametrize("B,T", [(1, 1), (1, 262144), (8, 262144),
+                                 (3, 1025)])
+def test_kernel_scratch_size(B, T):
+    """The wrapper's scratch: per-tile digit counts, two passes' digit
+    totals, the kept counts, two (B, T) permutations and the sorted node
+    ids, as csrc/segment_usage.cu lays them out."""
+    tiles = -(-T // su_ops.TILE)
+    assert su_ops.scratch_ints(B, T) == B * (
+        su_ops.RADIX * tiles + 2 * su_ops.RADIX + 1 + 3 * T)
+    assert su_ops.RADIX ** 2 == su_ops.MAX_NODES
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    node, vals, mask = _lane_inputs(0, 1, 8, 4, 3, "uniform")
+    with pytest.raises(ValueError):
+        su_ops.segment_usage_cuda(torch.from_numpy(node),
+                                  torch.from_numpy(vals),
+                                  torch.from_numpy(mask), 4)
