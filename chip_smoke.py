@@ -17,10 +17,15 @@ Phases, each printing its own lines:
      constraint_match with its lane axis, placement_commit with a per-lane
      flag ('both'), and sched_commit with lanes of all three proposal
      families in modes
-     static, dynamic and both, one operand shared by the lanes;
+     static, dynamic and both, one operand shared by the lanes; B and D
+     past the old node ceiling (N=20,000 and 150,000, P=64, R=3, every
+     mode and family, bitwise; the cluster size each chose) and E at
+     70,000 nodes with V=12 (three digit passes, two column groups,
+     bitwise);
      flash_attention at the serving shape of qwen3-4b (B=4, S=512, H=32,
-     D=128, bf16, causal; max abs err 2e-2) and in f32 at a ragged S,
-     causal and full (1e-5); fused_ce at qwen3-4b's training shape
+     D=128, bf16, causal; max abs err 2e-2; its tensor-core body) and in
+     f32 at a ragged S, causal and full (1e-5; its SIMT body); fused_ce
+     at qwen3-4b's training shape
      (T=2,048, d=2,560, Vp=152,064, V=151,936, bf16, one label in seven
      ignored; per-token nll and lse within 2e-3; its tensor-core body) and
      in f32 at a ragged T with V < Vp (1e-4; its SIMT body);
@@ -44,7 +49,8 @@ Phases, each printing its own lines:
      card, bf16 activations and cache), ``ServingEngine.generate`` on 4
      prompts of 512 random tokens, 32 new tokens each, with
      ``attention_impl="pallas"`` (kernel F in every layer of the prefill);
-     launch counts reset just before and read just after (F: 36); prefill
+     launch counts reset just before and read just after (F: 36, all
+     through its tensor-core body); prefill
      ms, decode ms per token, new tokens/s and peak memory; torch.profiler
      traces of a prefill and of 8 decode steps; then the same parameters
      and prompts with ``attention_impl="xla"``: greedy agreement of the
@@ -78,9 +84,14 @@ Phases, each printing its own lines:
      sched_commit (and constraint_match and segment_usage) at the
      fleet's, flash_attention at the serving path's, fused_ce at the
      training path's (the library yardstick there is two calls:
-     ``linear`` and ``cross_entropy``);
+     ``linear`` and ``cross_entropy``); for placement_commit and
+     sched_commit also the cluster size the scan chose and its latency
+     floor (the same P tasks over one node a block, where a task is one
+     block reduction and one exchange of the blocks' pairs and nothing
+     else);
   9. a ``kernels:`` status line and the JSON kernel table (seven
-     kernels, launches by path).
+     kernels, launches by path; F's body and tensor-core launches, B and
+     D's cluster size).
 
 The seven CUDA kernels are built at first use from every
 ``src/repro_torch/csrc/*.cu`` (one nvcc per source, all started together)
@@ -137,6 +148,9 @@ TRAIN_CATEGORIES = (
 ULP_RTOL = 2.5e-7             # "within 2 ulp" for the variances
 SLEEP_CYCLES = 2_000_000      # ~1 ms of device clock before a timed call
 G_TC_BODY = "tensor cores: TMA + wgmma m64n256k16, bf16 in, f32 out"
+BIG_N = (20_000, 150_000)     # B and D past the old node ceiling
+BIG_P = 64
+E_BIG_N, E_BIG_V = 70_000, 12  # E past its old ceilings (3 passes)
 
 
 PLUGIN = "smoke_pack_left"     # the fleet's external-family lane
@@ -316,6 +330,7 @@ def main(argv=None) -> int:
         for fn in counters.values():
             fn.launches = 0
         ce_ops.fused_ce_cuda.launches_tc = 0    # G's tensor-core body
+        fa_ops.flash_attention_cuda.launches_tc = 0  # F's
 
     # ---- 3. kernels against their plain versions, cell-A shapes -------
     # A: constraint_match
@@ -500,6 +515,76 @@ def main(argv=None) -> int:
               f"{int((got[0] >= 0).sum())} placed")
     results["sched_commit"]["max_abs_err"] = d_err
 
+    # B and D past the old ceiling of one block's shared memory (N*R <=
+    # 58,112 floats): 20,000 and 150,000 nodes, P=64, R=3, every mode and
+    # family, on their own random stream (the later phases' inputs stay
+    # those of earlier versions of this script)
+    big = np.random.default_rng(args.seed + 16)
+
+    def commit_ops(lanes, n_nodes):
+        total = cuda(grid(big, 16, 256, (lanes, n_nodes, R)))
+        active = cuda(big.random((lanes, n_nodes)) < 0.8)
+        return [cuda(grid(big, -256, 0, (lanes, BIG_P, n_nodes))),
+                cuda(grid(big, 1, 64, (lanes, BIG_P, R))),
+                cuda(big.random((lanes, BIG_P, n_nodes)) < 0.7),
+                cuda(big.random((lanes, BIG_P)) < 0.85),
+                torch.where(active[..., None], total, -1.0),
+                torch.clamp_min(total, 1e-6),
+                cuda(grid(big, 0, 96, (lanes, n_nodes, R)))]
+
+    big_fam = (S_, NO_, EX_, NO_)
+    for n_big in BIG_N:
+        ops = commit_ops(2, n_big)
+        flags = cuda(np.array([True, False]))
+        for mode in ("static", "dynamic", "both"):
+            no_k, ta_k = pc_ops.placement_commit_cuda(*ops, mode, flags)
+            for b in range(2):
+                dyn = bool(flags[b]) if mode == "both" else mode == "dynamic"
+                no_r, ta_r = placement_commit_ref(*[x[b] for x in ops], dyn)
+                torch.cuda.synchronize()
+                assert torch.equal(no_k[b], no_r), f"B N={n_big} {mode}"
+                assert torch.equal(ta_k[b], ta_r), f"B N={n_big} {mode}"
+        print(f"B placement_commit N={n_big} P={BIG_P} B=2 static, dynamic, "
+              f"both: node_of exact, tally bitwise (cluster of "
+              f"{pc_ops.cluster_size('placement_commit', 2)} blocks)")
+        pref4, req4, ok4, valid4, tot4, den4, res4 = commit_ops(4, n_big)
+        ops = [torch.where(ok4, pref4, float("-inf")), ok4, req4, valid4,
+               tot4, den4, res4]
+        ext4 = cuda(grid(big, -64, 64, (2, BIG_P, n_big)))
+        start4 = cuda(np.array([0, n_big // 3, 0, n_big - 1], np.int32))
+        for mode, dyn in (("static", (False,) * 4), ("dynamic", (True,) * 4),
+                          ("both", (True, False, False, True))):
+            got = pc_ops.sched_commit_fleet(
+                *ops, start4, fam=big_fam, dynamic=dyn, ext=ext4,
+                ext_row=(0, 0, 1, 0))
+            want = sched_commit_fleet_ref(*ops, start4, big_fam, dyn, ext4,
+                                          (0, 0, 1, 0))
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]), f"D N={n_big} {mode}"
+            assert torch.equal(got[1], want[1]), f"D N={n_big} {mode}"
+        print(f"D sched_commit N={n_big} P={BIG_P} B=4 families {big_fam} "
+              f"static, dynamic, both: node_of exact, tally bitwise "
+              f"(cluster of {pc_ops.cluster_size('sched_commit', 4)} "
+              f"blocks)")
+        del ops, pref4, req4, ok4, valid4, tot4, den4, res4, ext4
+
+    # E past its old ceilings (16,384 nodes, V <= 8): three 7-bit digit
+    # passes and two column groups, cell A's task table, bitwise
+    for label in ("uniform", "zipf"):
+        nd = (big.integers(-1, E_BIG_N, (2, T)) if label == "uniform" else
+              np.minimum(big.zipf(1.3, (2, T)) - 1, E_BIG_N - 1))
+        eb = (cuda(nd.astype(np.int32)), cuda(grid(big, 0, 48,
+                                                    (2, T, E_BIG_V))),
+              cuda(big.random((2, T)) < 0.7), E_BIG_N)
+        got = su_ops.segment_usage_lanes(*eb)
+        want = segment_usage_lanes_ref(*eb)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"E {label} N={E_BIG_N} V={E_BIG_V}"
+        print(f"E segment_usage {label} B=2 T={T} -> N={E_BIG_N} V={E_BIG_V} "
+              f"({su_ops.digit_passes(E_BIG_N)} digit passes, one launch): "
+              f"bitwise against the plain version")
+    del eb, got, want
+
     # F: flash_attention at the serving path's shape (qwen3-4b prefill:
     # B=4, S=512, H=32, D=128, bf16, causal), then in f32 at a ragged S
     scfg = get_config(SERVE_ARCH)
@@ -508,7 +593,11 @@ def main(argv=None) -> int:
     fq, fk, fv = (torch.randn(f_shape, generator=fg, device=dev,
                               dtype=torch.bfloat16) for _ in range(3))
     f_scale = 1.0 / scfg.resolved_head_dim ** 0.5
+    assert fa_ops.uses_tensor_cores(fq.dtype, f_shape[3])
+    n_tc = fa_ops.flash_attention_cuda.launches_tc
     f_out = fa_ops.flash_attention(fq, fk, fv, causal=True, scale=f_scale)
+    assert fa_ops.flash_attention_cuda.launches_tc == n_tc + 1, \
+        "F bf16: not the tensor-core body"
     f_want = attention_ref(fq, fk, fv, causal=True, scale=f_scale)
     torch.cuda.synchronize()
     assert f_out.dtype == torch.bfloat16 and f_out.shape == f_shape
@@ -516,18 +605,22 @@ def main(argv=None) -> int:
     assert f_err <= 2e-2, f"F bf16 causal: max abs err {f_err} > 2e-2"
     results["flash_attention"]["max_abs_err"] = f_err
     print(f"F flash_attention B={f_shape[0]} S={f_shape[1]} H={f_shape[2]} "
-          f"D={f_shape[3]} bf16 causal: max abs err {f_err:.3g} (<= 2e-2)")
+          f"D={f_shape[3]} bf16 causal (body: {fa_ops.TC_BODY}): max abs "
+          f"err {f_err:.3g} (<= 2e-2)")
     for causal in (False, True):
         xs = [torch.randn((2, 200, 8, 128), generator=fg, device=dev)
               for _ in range(3)]
+        n_tc = fa_ops.flash_attention_cuda.launches_tc
         got = fa_ops.flash_attention(*xs, causal=causal)
+        assert fa_ops.flash_attention_cuda.launches_tc == n_tc, \
+            "F f32: not the SIMT body"
         want = attention_ref(*xs, causal=causal)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         assert err <= 1e-5, f"F f32 causal={causal}: max abs err {err}"
         print(f"F flash_attention B=2 S=200 H=8 D=128 f32 "
-              f"{'causal' if causal else 'full'}: max abs err {err:.3g} "
-              "(<= 1e-5)")
+              f"{'causal' if causal else 'full'} (body: {fa_ops.SIMT_BODY}):"
+              f" max abs err {err:.3g} (<= 1e-5)")
     del f_out, f_want, xs, got, want
 
     # G: fused_ce at the training path's shape (qwen3-4b, 4 x 512 tokens,
@@ -815,10 +908,13 @@ def main(argv=None) -> int:
     reset_counts()
     gen_ms, out_k = timed_ms(lambda: engine.generate(prompts, SERVE_GEN))
     launches_serve = {name: fn.launches for name, fn in counters.items()}
+    f_tc = fa_ops.flash_attention_cuda.launches_tc
     peak = torch.cuda.max_memory_allocated(dev)
-    print(f"launches (serve run): {launches_serve}")
+    print(f"launches (serve run): {launches_serve}; F through its "
+          f"tensor-core body: {f_tc}")
     assert launches_serve["flash_attention"] == serve_cfg.n_layers, \
         launches_serve
+    assert f_tc == serve_cfg.n_layers, f"F's TC body launched {f_tc} times"
     assert all(launches_serve[k] > 0 for k in SERVE_PATH), launches_serve
     assert out_k.shape == (SERVE_B, SERVE_GEN) and out_k.dtype == torch.int32
     assert bool(((out_k >= 0) & (out_k < serve_cfg.vocab_size)).all())
@@ -1079,6 +1175,25 @@ def main(argv=None) -> int:
                                            fleet_dyn, d_ext, d_ext_row),
             None, 5, 2, d_bytes, d_ops),
     }
+    # B and D: the cluster size each scan chose, and its latency floor: the
+    # same P tasks over one node a block (N = C), where a task is one block
+    # reduction and one exchange of the blocks' pairs and nothing else
+    clusters = {"placement_commit": pc_ops.cluster_size("placement_commit",
+                                                        1),
+                "sched_commit": pc_ops.cluster_size("sched_commit", Bf)}
+    c_b, c_d = clusters["placement_commit"], clusters["sched_commit"]
+    floor_b = (sc_r[:, :c_b].contiguous(), req, ok[:, :c_b].contiguous(),
+               valid, total_f[:c_b].contiguous(), denom[:c_b].contiguous(),
+               node_res[:c_b].contiguous())
+    floor_d = (fsc_r[..., :c_d].contiguous(), f_ok[..., :c_d].contiguous(),
+               f_req, f_valid, f_total_fold[:, :c_d].contiguous(),
+               f_denom[:, :c_d].contiguous(), f_res[:, :c_d].contiguous())
+    floor_d_kw = dict(d_kw, ext=d_ext[..., :c_d].contiguous())
+    floors = {
+        "placement_commit": time_ms(torch, lambda: pc_ops.placement_commit(
+            *floor_b, True), 5),
+        "sched_commit": time_ms(torch, lambda: pc_ops.sched_commit_fleet(
+            *floor_d, d_start % c_d, **floor_d_kw), 5)}
     for name, (kfn, pfn, lfn, reps, preps, nb, nops) in timings.items():
         ms = time_ms(torch, kfn, reps)
         plain_ms = time_ms(torch, pfn, preps, warmup=1)
@@ -1089,11 +1204,18 @@ def main(argv=None) -> int:
         lib = f"{lib_ms:.4f}" if lib_ms is not None else "-"
         shapes = (f"fleet B={Bf}" if name == "sched_commit"
                   else "main path")
+        scan = ""
+        if name in clusters:
+            results[name].update(cluster=clusters[name],
+                                 latency_floor_ms=floors[name])
+            scan = (f", cluster of {clusters[name]} blocks a lane, latency "
+                    f"floor {floors[name]:.4f} ms ({P} dependent block "
+                    f"reductions and exchanges over one node a block)")
         print(f"time {name} ({shapes}): kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {lib} ms, launches/window "
               f"{launches[name] / W:.4g} main, "
               f"{launches_fleet[name] / FLEET_WINDOWS:.4g} fleet, bound "
-              f"{b_ms:.4f} ms ({b_by}) [{smi}]")
+              f"{b_ms:.4f} ms ({b_by}){scan} [{smi}]")
     # A with its lane axis, at the fleet's shapes
     ms = time_ms(torch, lambda: cm_ops.constraint_match(*fa_args), 10)
     plain_ms = time_ms(torch, lambda: [constraint_match_ref(
@@ -1145,7 +1267,8 @@ def main(argv=None) -> int:
                                       library_ms=lib_ms, bound_ms=b_ms,
                                       bound_by=b_by)
     print(f"time flash_attention (serve B={Bq} S={Sq} H={Hq} D={Dq} bf16 "
-          f"causal): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"causal, body: {fa_ops.TC_BODY}): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library "
           f"{lib_ms:.4f} ms (scaled_dot_product_attention), launches per "
           f"prefill {launches_serve['flash_attention']}, bound "
           f"{b_ms:.4f} ms ({b_by}) [{smi}]")
@@ -1203,8 +1326,11 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **({"fleet": r["fleet"]} if "fleet" in r else {}),
+            **({k: r[k] for k in ("cluster", "latency_floor_ms") if k in r}),
             **({"body": G_TC_BODY, "launches_tc": g_tc}
-               if name == "fused_ce" else {})})
+               if name == "fused_ce" else {}),
+            **({"body": fa_ops.TC_BODY, "launches_tc": f_tc}
+               if name == "flash_attention" else {})})
     print("kernels: " + " ".join(f"{t['name']}=ok(cuda)" for t in table))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -53,13 +53,12 @@
 // folding each tile into per-thread running statistics that the 16 lanes
 // sharing rows merge with shuffles at the end.
 
-#include <cuda.h>          // CUtensorMap and its enums; the encoder is
-                           // looked up in libcuda at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -230,6 +229,8 @@ int launch_typed(const void* x, const void* w, const int* labels,
 
 namespace tc {
 
+using namespace tma;
+
 constexpr int BM = 128;                  // token rows a block (2 x 64)
 constexpr int BN = 256;                  // vocab columns a tile
 constexpr int BK = 64;                   // d a stage: one 128-byte row
@@ -238,69 +239,6 @@ constexpr int A_BYTES = BM * BK * 2;     // x slice, 16 KB
 constexpr int B_BYTES = BN * BK * 2;     // W slice, 32 KB
 constexpr int THREADS = 384;             // 2 consumer warpgroups, 1 producer
 constexpr int SMEM = 1024 + STAGES * (A_BYTES + B_BYTES) + 2 * STAGES * 8;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Spin until the barrier's phase of this parity has completed; a wait of
-// ~10 s (a lost arrival) traps, so a fault ends the launch with an error.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  uint32_t done;
-  do {
-    if (clock64() - t0 > (1LL << 34)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 2-D tensor map into shared memory; the mbarrier counts its
-// bytes (the whole box, zero-filled where it leaves the tensor).
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c_inner,
-                                         int c_outer) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
-          dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c_inner),
-      "r"(c_outer)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major operand in 128-byte swizzled rows: start
-// address, leading offset 16 B (unused with this swizzle), 1,024 B between
-// groups of 8 rows, swizzle mode 128B.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(16 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
 
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
                                                  uint64_t db, int scale_d) {
@@ -357,13 +295,6 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// The accumulators are written by wgmma behind the compiler's back: tie
-// every read after a wait to the wait.
-__device__ __forceinline__ void fence_regs(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __global__ void __launch_bounds__(THREADS, 1) fused_ce_tc_kernel(
@@ -522,34 +453,10 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ce_tc_kernel(
   }
 }
 
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// cuTensorMapEncodeTiled from the libcuda that PyTorch already loaded
-// (this library links only the CUDA runtime).
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
-    if (h != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
 // A (rows, D) row-major bf16 matrix, read in boxes of box_rows x 64.
 bool encode(CUtensorMap* map, const void* ptr, int rows, int D,
             int box_rows) {
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_rows(map, ptr, rows, D, BK, box_rows);
 }
 
 }  // namespace tc

@@ -19,9 +19,11 @@
 // Design: deterministic, no float atomics, and each node's sum is taken in
 // increasing task order from 0.0f, the order of the reference's sequential
 // scatter-add. Per lane, the kept tasks (mask set, 0 <= node < N) are
-// sorted by node with a stable LSD radix sort of two 7-bit digits (node ids
-// fit in 14 bits: N <= 16,384), then one thread per node run adds the run's
-// rows in task order. Each pass launches, for all lanes at once:
+// sorted by node with a stable LSD radix sort of 7-bit digits, as many
+// passes as the largest node id needs: ceil(bits(N - 1) / 7), at least 1
+// (the wrapper's digit_passes: 2 up to N = 16,384, e.g. cell A, 3 up to
+// 2,097,152, at most 5 for any int32 id), then one thread per node run adds
+// the run's rows in task order. Each pass launches, for all lanes at once:
 //   1. per-tile digit counts (shared-memory integer atomics, and the lane's
 //      digit totals by global integer atomics: sums of counts do not
 //      depend on their order), stored digit-major;
@@ -31,25 +33,27 @@
 //   3. a stable scatter of task indices: inside a 1,024-task tile a warp
 //      ranks equal digits by lane with __match_any_sync, and the (chunk,
 //      warp) counts of each digit are scanned in task order in shared
-//      memory; the second pass also writes the sorted node ids.
+//      memory; the last pass also writes the sorted node ids.
 // 4. Then a thread per sorted position that starts a node's run adds the
-//    run's value rows, UNROLL rows loaded at a time, into V accumulators.
+//    run's value rows, UNROLL rows loaded at a time, into MAX_V
+//    accumulators; wider rows are taken MAX_V columns at a time, the run
+//    walked once per group, each column still summed in task order.
 // Work is O(T + N) per lane whatever the node distribution: a node that
 // holds every task costs one serial run of T adds (the order the sum must
-// keep). Two 7-bit passes keep a tile's counters at 128 and the scans at
+// keep). 7-bit digits keep a tile's counters at 128 and the scans at
 // 128 x ceil(T / 1,024) entries a lane; one 14-bit pass would need 16,384
 // counters a tile. Everything launches from one entry point on the
-// caller's stream; the scratch (counts, totals, two (B, T) permutations
-// and the sorted node ids) comes from the wrapper.
+// caller's stream; the scratch (counts, each pass's totals, two (B, T)
+// permutations and the sorted node ids) comes from the wrapper.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int MAX_V = 8;
+constexpr int MAX_V = 8;                    // value columns a group
 constexpr int DIGIT_BITS = 7;
 constexpr int RADIX = 1 << DIGIT_BITS;      // 128 buckets a pass
-constexpr int MAX_NODES = RADIX * RADIX;    // 16,384: two digits
+constexpr int MAX_PASSES = 5;               // 35 bits: any int32 node id
 constexpr int THREADS = 256;                // 8 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNKS = 4;                   // tasks a thread sorts
@@ -59,8 +63,8 @@ constexpr unsigned FULL = 0xffffffffu;
 
 // The digit of position i of a pass, or -1 when it carries no kept task;
 // *task and *nd get the task and its node. Pass 0 reads the lane's tasks
-// in task order, pass 1 the permutation pass 0 wrote (its first `kept`
-// positions).
+// in task order, a later pass the permutation the pass before it wrote
+// (its first `kept` positions).
 __device__ __forceinline__ int digit_of(
     int pass, int i, int T, int N, const int* __restrict__ node,
     const unsigned char* __restrict__ mask, const int* __restrict__ perm,
@@ -76,7 +80,7 @@ __device__ __forceinline__ int digit_of(
   const int t = perm[i];
   *task = t;
   *nd = node[t];
-  return *nd >> DIGIT_BITS;
+  return (*nd >> (DIGIT_BITS * pass)) & (RADIX - 1);
 }
 
 // 1. counts[b][digit * n_tiles + tile] for one tile of one lane, and the
@@ -217,8 +221,8 @@ __global__ void __launch_bounds__(THREADS) radix_scatter_kernel(
 
 // 4. One thread per position of the sorted order: a thread that starts a
 // node's run adds the run's value rows in task order (UNROLL rows loaded
-// at a time; the rows after a run belong to larger nodes) and writes
-// out[b][node].
+// at a time; the rows after a run belong to larger nodes), MAX_V columns a
+// group, and writes out[b][node].
 __global__ void __launch_bounds__(THREADS) segment_sum_kernel(
     const int* __restrict__ keys, const int* __restrict__ perm,
     const float* __restrict__ values, const int* __restrict__ kept,
@@ -233,82 +237,92 @@ __global__ void __launch_bounds__(THREADS) segment_sum_kernel(
   const float* val = values + lane_t * V;
   const int n = key[i];
   if (i > 0 && key[i - 1] == n) return;
-  float acc[MAX_V];
+  float* o = out + ((long long)b * N + n) * V;
+  for (int v0 = 0; v0 < V; v0 += MAX_V) {
+    const int nv = min(MAX_V, V - v0);
+    float acc[MAX_V];
 #pragma unroll
-  for (int v = 0; v < MAX_V; ++v) acc[v] = 0.0f;
-  bool more = true;
-  for (int j = i; more; j += UNROLL) {
-    bool in[UNROLL];
-    float row[UNROLL][MAX_V];
+    for (int v = 0; v < MAX_V; ++v) acc[v] = 0.0f;
+    bool more = true;
+    for (int j = i; more; j += UNROLL) {
+      bool in[UNROLL];
+      float row[UNROLL][MAX_V];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      in[u] = j + u < k && key[j + u] == n;
-      const float* src = val + (long long)(in[u] ? p[j + u] : 0) * V;
-#pragma unroll
-      for (int v = 0; v < MAX_V; ++v)
-        row[u][v] = (in[u] && v < V) ? src[v] : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u)
-      if (in[u]) {
+      for (int u = 0; u < UNROLL; ++u) {
+        in[u] = j + u < k && key[j + u] == n;
+        const float* src =
+            val + (long long)(in[u] ? p[j + u] : 0) * V + v0;
 #pragma unroll
         for (int v = 0; v < MAX_V; ++v)
-          if (v < V) acc[v] = acc[v] + row[u][v];
+          row[u][v] = (in[u] && v < nv) ? src[v] : 0.0f;
       }
-    more = in[UNROLL - 1];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (in[u]) {
+#pragma unroll
+          for (int v = 0; v < MAX_V; ++v)
+            if (v < nv) acc[v] = acc[v] + row[u][v];
+        }
+      more = in[UNROLL - 1];
+    }
+    for (int v = 0; v < nv; ++v) o[v0 + v] = acc[v];
   }
-  float* o = out + ((long long)b * N + n) * V;
-  for (int v = 0; v < V; ++v) o[v] = acc[v];
 }
 
 }  // namespace
 
 // Scratch ints the wrapper must pass: B * (RADIX * ceil(T / TILE) +
-// 2 * RADIX + 1 + 3 * T).
-extern "C" long long segment_usage_scratch_ints(int B, int T) {
+// passes * RADIX + 1 + 3 * T).
+extern "C" long long segment_usage_scratch_ints(int B, int T, int passes) {
   const long long n_tiles = (T + TILE - 1) / TILE;
-  return (long long)B * (RADIX * n_tiles + 2 * RADIX + 1 + 3LL * T);
+  return (long long)B * (RADIX * n_tiles + (long long)passes * RADIX + 1 +
+                         3LL * T);
 }
 
 // task_node (B, T) i32, values (B, T, V) f32, mask (B, T) bool (one byte),
-// out (B, N, V) f32, scratch of segment_usage_scratch_ints(B, T) ints.
+// out (B, N, V) f32, scratch of segment_usage_scratch_ints(B, T, passes)
+// ints; `passes` 7-bit digits must hold every node id below N.
 extern "C" int segment_usage_launch(
     const void* task_node, const void* values, const void* mask, void* out,
     void* scratch, long long scratch_ints, int B, int T, int V, int N,
-    void* stream) {
-  if (B < 1 || B > 65535 || T < 0 || V < 1 || V > MAX_V || N < 1 ||
-      N > MAX_NODES || scratch_ints < segment_usage_scratch_ints(B, T))
+    int passes, void* stream) {
+  if (B < 1 || B > 65535 || T < 0 || V < 1 || N < 1 || passes < 1 ||
+      passes > MAX_PASSES ||
+      (passes < MAX_PASSES &&
+       ((long long)(N - 1) >> (DIGIT_BITS * passes)) != 0) ||
+      scratch_ints < segment_usage_scratch_ints(B, T, passes))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(out, 0, sizeof(float) * B * N * V, st);
   if (err != cudaSuccess || T == 0) return (int)err;
   const int n_tiles = (T + TILE - 1) / TILE;
   int* counts = static_cast<int*>(scratch);     // (B, RADIX, n_tiles)
-  int* totals = counts + (long long)B * RADIX * n_tiles;   // (2, B, RADIX)
-  int* kept = totals + 2 * B * RADIX;           // (B,)
-  int* perm0 = kept + B;                        // (B, T) each
-  int* perm1 = perm0 + (long long)B * T;
-  int* keys = perm1 + (long long)B * T;
-  err = cudaMemsetAsync(totals, 0, sizeof(int) * 2 * B * RADIX, st);
+  // (passes, B, RADIX)
+  int* totals = counts + (long long)B * RADIX * n_tiles;
+  int* kept = totals + (long long)passes * B * RADIX;     // (B,)
+  int* perm[2] = {kept + B, kept + B + (long long)B * T};  // (B, T) each
+  int* keys = perm[1] + (long long)B * T;
+  err = cudaMemsetAsync(totals, 0, sizeof(int) * passes * B * RADIX, st);
   if (err != cudaSuccess) return (int)err;
   const int* node = static_cast<const int*>(task_node);
   const unsigned char* msk = static_cast<const unsigned char*>(mask);
   const dim3 tiles(n_tiles, B);
-  for (int pass = 0; pass < 2; ++pass) {
-    const int* in = pass == 0 ? perm1 : perm0;   // unread in pass 0
-    int* tot = totals + pass * B * RADIX;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int* in = perm[(pass + 1) % 2];       // unread in pass 0
+    int* tot = totals + (long long)pass * B * RADIX;
     radix_hist_kernel<<<tiles, THREADS, 0, st>>>(pass, node, msk, in, kept,
                                                  counts, tot, T, N, n_tiles);
     radix_scan_kernel<<<dim3(RADIX, B), THREADS, 0, st>>>(
         counts, tot, pass == 0 ? kept : nullptr, n_tiles);
     radix_scatter_kernel<<<tiles, THREADS, 0, st>>>(
-        pass, node, msk, in, kept, counts, pass == 0 ? perm0 : perm1,
-        pass == 0 ? nullptr : keys, T, N, n_tiles);
+        pass, node, msk, in, kept, counts, perm[pass % 2],
+        pass == passes - 1 ? keys : nullptr, T, N, n_tiles);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   segment_sum_kernel<<<dim3((T + THREADS - 1) / THREADS, B), THREADS, 0,
-                       st>>>(keys, perm1, static_cast<const float*>(values),
-                             kept, static_cast<float*>(out), T, V, N);
+                       st>>>(keys, perm[(passes - 1) % 2],
+                             static_cast<const float*>(values), kept,
+                             static_cast<float*>(out), T, V, N);
   return (int)cudaGetLastError();
 }

@@ -31,7 +31,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "--fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-# -ldl: kernel G looks its tensor-map encoder up in libcuda with dlsym
+# -ldl: kernels F and G look their tensor-map encoder up in libcuda with
+# dlsym (csrc/tma.cuh)
 LINK_FLAGS = ["-ldl"]
 LIB_NAME = "librepro_torch_kernels.so"
 
@@ -43,15 +44,19 @@ F = ctypes.c_float
 # long long, scales as float
 SIGNATURES: Dict[str, List] = {
     "constraint_match_launch": [P, P, P, P, P, P, I, I, I, I, I, I, P],
-    "placement_commit_launch": [P, P, P, P, P, P, P, P, P, P,
+    "placement_commit_launch": [P, P, P, P, P, P, P, P, P,
                                 I, I, I, I, I, I, P],
-    "sched_commit_launch": [P, P, P, P, P, P, P, P, P, P, P,
+    "placement_commit_cluster": [I, I],
+    "sched_commit_launch": [P, P, P, P, P, P, P, P, P, P,
                             I, I, I, I, I, P],
+    "sched_commit_cluster": [I, I],
     "window_stats_launch": [P, P, P, P, P, P, P, P, P, P, P, P, P,
                             I, I, I, I, I, I, P],
-    "segment_usage_launch": [P, P, P, P, P, L, I, I, I, I, P],
+    "segment_usage_launch": [P, P, P, P, P, L, I, I, I, I, I, P],
     "flash_attention_launch": [P, P, P, P, L, L, L, L, L, L, L, L, L,
                                I, I, I, I, I, I, F, P],
+    "flash_attention_tc_launch": [P, P, P, P, L, L, L, L, L, L, L, L, L,
+                                  I, I, I, I, I, F, P],
     "fused_ce_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     "fused_ce_tc_launch": [P, P, P, P, P, P, I, I, I, I, I, I, P],
 }

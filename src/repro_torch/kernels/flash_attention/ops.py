@@ -3,7 +3,18 @@
 
 The kernel reads q, k and v in the reference's (B, S, H, D) layout by
 strides (the last dim contiguous), so the reference's fold to (B*H, S, D)
-and back is not needed."""
+and back is not needed. It has two bodies, and dtype and D alone pick one:
+
+- bf16 with D a multiple of 16 and D <= 128 (qwen3-4b's 128, phi3's 96,
+  64, ...): the tensor-core body (TMA, wgmma; p kept at f32 accuracy as two
+  bf16 operands). TMA needs 16-byte aligned bases and strides: such a call
+  with a base, or the stride of an axis longer than 1, that is not a
+  multiple of 16 bytes raises ValueError.
+- f32 (held to 1e-5, which bf16 tensor-core products would miss), and bf16
+  with any other D: the SIMT body (f32 scalar arithmetic).
+
+Neither body is the plain version; ``flash_attention_cuda.launches`` counts
+every launch and ``launches_tc`` those of the tensor-core body."""
 from __future__ import annotations
 
 import torch
@@ -14,13 +25,38 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 #: dtype codes of the C entry point
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+TC_BODY = "tensor cores: TMA + wgmma m64n64k16 (q k^T), m64nDk16 x 2 (p v)"
+SIMT_BODY = "SIMT: f32 scalar arithmetic"
+
+
+def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether a call of this dtype and head dim takes the tensor-core
+    body: bf16 with D % 16 == 0 and D <= 128."""
+    return (dtype == torch.bfloat16 and head_dim % 16 == 0
+            and 16 <= head_dim <= MAX_HEAD_DIM)
+
+
+def _check_tma(name: str, t: torch.Tensor) -> None:
+    """Raise ValueError unless ``t``'s base and the strides of its axes
+    longer than 1 are multiples of 16 bytes (TMA's rule)."""
+    es = t.element_size()
+    if t.data_ptr() % 16 != 0:
+        raise ValueError(f"{name}: base address not 16-byte aligned, which "
+                         f"the tensor-core body's TMA needs")
+    for ax in range(3):
+        if t.shape[ax] > 1 and (t.stride(ax) * es) % 16 != 0:
+            raise ValueError(f"{name}: stride {t.stride(ax)} of axis {ax} "
+                             f"is not a multiple of 16 bytes, which the "
+                             f"tensor-core body's TMA needs")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool, scale: float) -> torch.Tensor:
     """The kernel itself: q, k, v (B, S, H, D) CUDA tensors, all f32 or all
     bf16, D <= 128, each with a unit stride on D -> (B, S, H, D) in q's
-    dtype, contiguous."""
+    dtype, contiguous. bf16 with D % 16 == 0 goes through the tensor-core
+    body (16-byte aligned bases and strides, else ValueError), the rest
+    through the SIMT body."""
     B, S, H, D = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
@@ -40,18 +76,28 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {D} not in "
                          f"[1, {MAX_HEAD_DIM}]")
+    tc = uses_tensor_cores(q.dtype, D)
+    if tc:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_tma(name, t)
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    _build.launch("flash_attention_launch", q, k, v, out,
-                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                  B, S, H, D, int(bool(causal)), DTYPE_CODES[q.dtype],
-                  float(scale))
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    if tc:
+        _build.launch("flash_attention_tc_launch", q, k, v, out, *strides,
+                      B, S, H, D, int(bool(causal)), float(scale))
+        flash_attention_cuda.launches_tc += 1
+    else:
+        _build.launch("flash_attention_launch", q, k, v, out, *strides,
+                      B, S, H, D, int(bool(causal)), DTYPE_CODES[q.dtype],
+                      float(scale))
     flash_attention_cuda.launches += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_tc = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

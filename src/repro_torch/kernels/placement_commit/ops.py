@@ -4,7 +4,9 @@ launch the kernels, CPU tensors take the plain versions.
 
 Lane-batched operands carry a leading lane axis B, or 1 when the lanes
 share the operand; a shared operand is passed with lane stride 0, not
-copied B times.
+copied B times. Both kernels run the scan of ``csrc/commit_scan.cuh``: one
+thread-block cluster per lane, the node axis split among its blocks, so
+they take any N and R the reference takes.
 """
 from __future__ import annotations
 
@@ -20,21 +22,30 @@ from repro_torch.kernels.placement_commit.ref import (placement_commit_ref,
                                                       sched_commit_fleet_ref)
 
 __all__ = ["FAM_EXTERNAL", "FAM_NODE_ORDER", "FAM_SCORES", "MODES",
-           "lane_const", "placement_commit", "placement_commit_cuda",
-           "sched_commit_cuda", "sched_commit_fleet", "sched_pass"]
+           "cluster_size", "lane_const", "placement_commit",
+           "placement_commit_cuda", "sched_commit_cuda", "sched_commit_fleet",
+           "sched_pass"]
 
 MODES = ("static", "dynamic", "both")
-#: the largest N*R tally one block's shared memory holds (227 KB)
-MAX_TALLY_FLOATS = 232_448 // 4
 
 
-def _lane_operands(named, N: int, R: int, B: Optional[int] = None):
+def cluster_size(kernel: str, lanes: int, R: int = 3) -> int:
+    """Blocks a lane's cluster has when ``kernel`` ('placement_commit' or
+    'sched_commit') runs over ``lanes`` lanes with R resources on the
+    current card: 16 or 8, whichever the card keeps resident in fewer waves
+    (``pick_cluster`` in ``csrc/commit_scan.cuh``)."""
+    if kernel not in ("placement_commit", "sched_commit"):
+        raise ValueError(f"no cluster scan in {kernel!r}")
+    c = getattr(_build.library(), f"{kernel}_cluster")(int(lanes), int(R))
+    if c < 0:
+        raise RuntimeError(f"{kernel}_cluster: CUDA error {-c}")
+    return c
+
+
+def _lane_operands(named, B: Optional[int] = None):
     """Check the scan's lane operands ((name, tensor, dtype, tail shape),
     in the kernels' OP_* order) -> (B, lane-broadcast bit mask); B is the
     largest lane axis unless given."""
-    if N * R > MAX_TALLY_FLOATS:
-        raise ValueError(f"N*R={N * R} floats do not fit one block's shared "
-                         f"memory ({MAX_TALLY_FLOATS})")
     if B is None:
         B = max(t.shape[0] for _, t, _, _ in named)
     bcast = 0
@@ -52,14 +63,23 @@ def _scan_operands(first, first_name, req, ok, valid, total, denom,
                    reserved0, B: Optional[int] = None):
     P, N = first.shape[1], first.shape[2]
     R = req.shape[2]
-    return _lane_operands([
+    B, bcast = _lane_operands([
         (first_name, first, torch.float32, (P, N)),
         ("req", req, torch.float32, (P, R)),
         ("ok", ok, torch.bool, (P, N)),
         ("valid", valid, torch.bool, (P,)),
         ("total", total, torch.float32, (N, R)),
         ("denom", denom, torch.float32, (N, R)),
-        ("reserved0", reserved0, torch.float32, (N, R))], N, R, B), (P, N, R)
+        ("reserved0", reserved0, torch.float32, (N, R))], B)
+    return (B, bcast), (P, N, R)
+
+
+def _tally0(reserved0: torch.Tensor, B: int) -> torch.Tensor:
+    """The kernels' tally operand: a fresh (B, N, R) copy of reserved0,
+    which the scan updates in place (never the caller's tensor)."""
+    tally = torch.empty((B,) + tuple(reserved0.shape[1:]),
+                        dtype=torch.float32, device=reserved0.device)
+    return tally.copy_(reserved0.expand_as(tally))
 
 
 def placement_commit_cuda(pref, req, ok, valid, total, denom, reserved0,
@@ -79,9 +99,9 @@ def placement_commit_cuda(pref, req, ok, valid, total, denom, reserved0,
     else:
         dyn = None
     node_of = torch.empty((B, P), dtype=torch.int32, device=pref.device)
-    tally = torch.empty((B, N, R), dtype=torch.float32, device=pref.device)
+    tally = _tally0(reserved0, B)
     _build.launch("placement_commit_launch", pref, req, ok, valid, total,
-                  denom, reserved0, dyn, node_of, tally, B, P, N, R,
+                  denom, dyn, node_of, tally, B, P, N, R,
                   int(mode == "dynamic"), bcast)
     placement_commit_cuda.launches += 1
     return node_of, tally
@@ -157,10 +177,10 @@ def sched_commit_cuda(scores, req, ok, valid, total, denom, reserved0, ext,
     if ext is not None:
         _build.check(ext, "ext", torch.float32, (ext.shape[0], P, N))
     node_of = torch.empty((B, P), dtype=torch.int32, device=scores.device)
-    tally = torch.empty((B, N, R), dtype=torch.float32, device=scores.device)
+    tally = _tally0(reserved0, B)
     _build.launch("sched_commit_launch", scores, req, ok, valid, total,
-                  denom, reserved0, ext, lane_params, node_of, tally, B, P,
-                  N, R, bcast)
+                  denom, ext, lane_params, node_of, tally, B, P, N, R,
+                  bcast)
     sched_commit_cuda.launches += 1
     return node_of, tally
 
@@ -191,7 +211,7 @@ def sched_commit_fleet(scores, ok, req, valid, total, denom, reserved0,
     ``ext_row[b]``. Returns (node_of (B,P) i32, tally (B,N,R) f32), lane for
     lane what ``sched_pref_ref -> placement_commit_ref`` gives. ``tile_p``
     and ``tile_n`` (the reference kernel's VMEM tiles) are accepted and
-    ignored: one block holds a lane's whole node row.
+    ignored: the kernel's cluster splits any node row among its blocks.
     """
     B = len(fam)
     ext_row = tuple(ext_row) if ext_row is not None else (0,) * B

@@ -2,14 +2,18 @@
 that are not tile multiples and with more than one lane (kernel D with mixed
 families and per-lane modes, kernel B's per-lane flag, kernel A's lane
 axis; kernel F in f32 and bf16, causal and full, head dims 16-128, S a
-multiple of the tile or not, strided inputs); the engine and the scenario
-fleet (both dispatch paths), the LM serving path with kernel F, kernel E's
-lane form (B=1 and 8, V of 1-8, skewed and empty cases, and off-grid data
+multiple of the tile or not, strided inputs, which body serves which call,
+misaligned inputs refused); B and D past the node count one block's shared
+memory once held (12,500, 20,000 and 150,000 nodes, every mode and family,
+R from 1 to 6); the engine and the scenario fleet (both dispatch paths),
+the LM serving path with kernel F, kernel E's lane form (B=1 and 8, V of
+1-12, skewed and empty cases, one to four digit passes, and off-grid data
 at cell-A shape against the host's task-order f32 sum), and kernel G (the
 fused cross-entropy: small ragged shapes, which body serves which call,
 qwen3-4b's training shape, the gradients of the loss built on it, one
-train step), on the card against the CPU path or the plain version. Skipped without a CUDA device; on the card
-(where JAX, which tests/conftest.py imports, need not be installed):
+train step), on the card against the CPU path or the plain version.
+Skipped without a CUDA device; on the card (where JAX, which
+tests/conftest.py imports, need not be installed):
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
@@ -40,7 +44,8 @@ from repro_torch.kernels.fused_ce import ops as ce_ops
 from repro_torch.kernels.fused_ce.ref import fused_ce_ref
 from repro_torch.kernels.constraint_match.ref import constraint_match_ref
 from repro_torch.kernels.placement_commit import ops as pc_ops
-from repro_torch.kernels.placement_commit.ref import placement_commit_ref
+from repro_torch.kernels.placement_commit.ref import (placement_commit_ref,
+                                                      sched_commit_fleet_ref)
 from repro_torch.kernels.segment_usage import ops as su_ops
 from repro_torch.kernels.segment_usage.ref import (segment_usage_lanes_ref,
                                                    segment_usage_ref)
@@ -149,6 +154,94 @@ def test_sched_commit_mixed_families(dev, P, N, dyn, shared):
     assert torch.equal(tally.cpu(), want_t)
 
 
+def _commit_ops(r, B, P, N, R=3):
+    """The commit scan's operands on grid data: pref, req, ok, valid,
+    total (inactive nodes folded to -1), denom, reserved0."""
+    total = _g(r, 16, 256, (B, N, R))
+    active = torch.from_numpy(r.random((B, N)) < 0.8)
+    return [_g(r, -256, 0, (B, P, N)), _g(r, 1, 64, (B, P, R)),
+            torch.from_numpy(r.random((B, P, N)) < 0.7),
+            torch.from_numpy(r.random((B, P)) < 0.85),
+            torch.where(active[..., None], total, -1.0),
+            torch.clamp_min(total, 1e-6), _g(r, 0, 96, (B, N, R))]
+
+
+@pytest.mark.parametrize("mode", ["static", "dynamic", "both"])
+@pytest.mark.parametrize("N", [12500, 20000, 150000])
+def test_placement_commit_any_n(dev, mode, N):
+    """Kernel B past one block's shared memory (the old ceiling was N*R <=
+    58,112): cell A's 12,500 nodes (one node a thread, in registers),
+    20,000 and 150,000 (further nodes a thread, their tally in memory);
+    node_of exact and the tally bitwise against the plain version."""
+    B, P = 2, 64
+    r = np.random.default_rng(N)
+    ops = [x.to(dev) for x in _commit_ops(r, B, P, N)]
+    flags = torch.tensor([True, False], device=dev)
+    before = pc_ops.placement_commit_cuda.launches
+    node_of, tally = pc_ops.placement_commit_cuda(*ops, mode, flags)
+    assert pc_ops.placement_commit_cuda.launches == before + 1
+    for b in range(B):
+        dyn = bool(flags[b]) if mode == "both" else mode == "dynamic"
+        want_n, want_t = placement_commit_ref(*[x[b] for x in ops], dyn)
+        assert torch.equal(node_of[b], want_n)
+        assert torch.equal(tally[b], want_t)
+    assert bool((node_of >= 0).any())
+
+
+@pytest.mark.parametrize("R", [1, 4, 6])
+def test_placement_commit_any_r(dev, R):
+    """R up to MAX_R = 4 keeps the register node; R = 6 keeps every node
+    in memory; both modes, bitwise."""
+    B, P, N = 2, 40, 3000
+    r = np.random.default_rng(R)
+    ops = [x.to(dev) for x in _commit_ops(r, B, P, N, R)]
+    flags = torch.tensor([True, False], device=dev)
+    node_of, tally = pc_ops.placement_commit_cuda(*ops, "both", flags)
+    for b in range(B):
+        want_n, want_t = placement_commit_ref(*[x[b] for x in ops],
+                                              bool(flags[b]))
+        assert torch.equal(node_of[b], want_n)
+        assert torch.equal(tally[b], want_t)
+
+
+@pytest.mark.parametrize("dyn", [(False,) * 4, (True,) * 4,
+                                 (True, False, False, True)],
+                         ids=["static", "dynamic", "both"])
+@pytest.mark.parametrize("N", [12500, 20000, 150000])
+def test_sched_commit_any_n(dev, N, dyn):
+    """Kernel D's lanes of every family at 12,500, 20,000 and 150,000
+    nodes (P=64, R=3), against sched_pref_ref -> placement_commit_ref per
+    lane on the card: node_of exact, tally bitwise."""
+    P = 64
+    r = np.random.default_rng(N + 1)
+    fam = (pc_ops.FAM_SCORES, pc_ops.FAM_NODE_ORDER, pc_ops.FAM_EXTERNAL,
+           pc_ops.FAM_NODE_ORDER)
+    ext_row = (0, 0, 1, 0)
+    pref, req, ok, valid, total, denom, res0 = _commit_ops(r, 4, P, N)
+    scores = torch.where(ok, pref, float("-inf"))
+    ops = [x.to(dev) for x in (scores, ok, req, valid, total, denom, res0)]
+    ext = _g(r, -64, 64, (2, P, N)).to(dev)
+    start = torch.tensor([0, N // 3, 0, N - 1], dtype=torch.int32,
+                         device=dev)
+    before = pc_ops.sched_commit_cuda.launches
+    node_of, tally = pc_ops.sched_commit_fleet(
+        *ops, start, fam=fam, dynamic=dyn, ext=ext, ext_row=ext_row)
+    assert pc_ops.sched_commit_cuda.launches == before + 1
+    want_n, want_t = sched_commit_fleet_ref(*ops, start, fam, dyn, ext,
+                                            ext_row)
+    torch.cuda.synchronize()
+    assert torch.equal(node_of, want_n)
+    assert torch.equal(tally, want_t)
+
+
+def test_commit_scan_cluster_size(dev):
+    """The scan's cluster: 16 or 8 blocks a lane, for B and D, one lane or
+    many."""
+    for kernel in ("placement_commit", "sched_commit"):
+        for lanes in (1, 8, 64):
+            assert pc_ops.cluster_size(kernel, lanes) in (8, 16)
+
+
 @pytest.mark.parametrize("B,T,N", [(1, 1000, 77), (2, 5000, 1100)])
 def test_window_stats_lanes(dev, B, T, N):
     r = np.random.default_rng(T + N)
@@ -237,14 +330,42 @@ def test_segment_usage_off_grid_is_the_task_order_sum(dev, B, kind):
 
 
 def test_segment_usage_refuses_what_it_does_not_take(dev):
+    """No node, or values that are not f32, are refused; rows wider than
+    one group of 8 columns and node ids beyond two 7-bit digits are taken
+    (they were refused before the ceilings were lifted)."""
     node = torch.zeros((1, 10), dtype=torch.int32, device=dev)
     mask = torch.ones((1, 10), dtype=torch.bool, device=dev)
-    with pytest.raises(ValueError):      # V > 8
-        su_ops.segment_usage_lanes(node, torch.zeros((1, 10, 9), device=dev),
-                                   mask, 4)
-    with pytest.raises(ValueError):      # node ids beyond two 7-bit digits
+    with pytest.raises(ValueError):      # no node
         su_ops.segment_usage_lanes(node, torch.zeros((1, 10, 3), device=dev),
-                                   mask, 16385)
+                                   mask, 0)
+    with pytest.raises(TypeError):       # f64 values
+        su_ops.segment_usage_lanes(node, torch.zeros(
+            (1, 10, 3), dtype=torch.float64, device=dev), mask, 4)
+    vals = torch.arange(90, dtype=torch.float32, device=dev).reshape(1, 10, 9)
+    for n_nodes in (4, 16385):           # V = 9; three digit passes
+        assert torch.equal(
+            su_ops.segment_usage_lanes(node, vals, mask, n_nodes),
+            segment_usage_lanes_ref(node, vals, mask, n_nodes))
+
+
+@pytest.mark.parametrize("B,T,N,V", [(2, 40000, 70000, 12), (1, 3000, 129, 1),
+                                     (1, 5000, 128, 9), (2, 20000, 2500000,
+                                                         3)])
+def test_segment_usage_many_nodes_and_columns(dev, B, T, N, V):
+    """Past the old ceilings: 70,000 nodes (three 7-bit passes) with V=12
+    (two column groups), one pass (N <= 128), four passes; bitwise against
+    the plain lane form on grid data, a Zipf draw crowding low ids and a
+    uniform one reaching the top ids."""
+    assert su_ops.digit_passes(N) == {70000: 3, 129: 2, 128: 1,
+                                      2500000: 4}[N]
+    r = np.random.default_rng(N + V)
+    for kind in ("zipf", "uniform"):
+        node, vals, mask = (x.to(dev) for x in _su_lanes(r, B, T, N, V,
+                                                         kind))
+        got = su_ops.segment_usage_lanes(node, vals, mask, N)
+        want = segment_usage_lanes_ref(node, vals, mask, N)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), kind
 
 
 def _soup(cfg, seed=0, n_windows=12, n_nodes=12, n_slots=80):
@@ -368,6 +489,63 @@ def test_flash_attention_strided_inputs(dev):
         want = attention_ref(q, k, vv, causal=True, scale=0.11)
         torch.cuda.synchronize()
         assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,D", [(2, 128, 3, 64), (1, 200, 2, 96),
+                                     (2, 256, 4, 128), (1, 77, 5, 128),
+                                     (1, 1, 1, 64), (4, 512, 2, 128)])
+def test_flash_attention_tensor_core_body(dev, B, S, H, D, causal):
+    """bf16 with D in {64, 96, 128} goes through the tensor-core body (its
+    own counter rises, once a call), within 2e-2 of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(B * S + H * D + causal)
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    assert fa_ops.uses_tensor_cores(q.dtype, D)
+    n, n_tc = (fa_ops.flash_attention_cuda.launches,
+               fa_ops.flash_attention_cuda.launches_tc)
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    assert fa_ops.flash_attention_cuda.launches == n + 1
+    assert fa_ops.flash_attention_cuda.launches_tc == n_tc + 1
+    want = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, H, D)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2e-2, err
+
+
+@pytest.mark.parametrize("dtype,D,tc", [(torch.bfloat16, 48, True),
+                                        (torch.bfloat16, 40, False),
+                                        (torch.float32, 64, False)])
+def test_flash_attention_body_by_dtype_and_head_dim(dev, dtype, D, tc):
+    """The body depends on dtype and D alone: bf16 with D % 16 == 0 on
+    tensor cores, bf16 with other D and f32 on the SIMT body."""
+    g = torch.Generator(device=dev).manual_seed(D)
+    q, k, v = (torch.randn((2, 150, 3, D), generator=g, device=dev,
+                           dtype=dtype) for _ in range(3))
+    n_tc = fa_ops.flash_attention_cuda.launches_tc
+    got = fa_ops.flash_attention(q, k, v, causal=True)
+    assert fa_ops.flash_attention_cuda.launches_tc == n_tc + int(tc)
+    want = attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def test_flash_attention_refuses_misaligned_inputs(dev):
+    """The tensor-core body's TMA needs 16-byte aligned bases and strides:
+    a base 2 bytes off, or a head stride of 66 elements (132 bytes), is
+    refused with ValueError and launches nothing."""
+    buf = torch.zeros(2 * 64 * 4 * 64 + 1, dtype=torch.bfloat16, device=dev)
+    off = buf[1:].view(2, 64, 4, 64)
+    wide = torch.zeros((2, 64, 4, 66), dtype=torch.bfloat16,
+                       device=dev)[..., :64]
+    ok = torch.zeros((2, 64, 4, 64), dtype=torch.bfloat16, device=dev)
+    n = fa_ops.flash_attention_cuda.launches
+    for bad in (off, wide):
+        with pytest.raises(ValueError, match="16 bytes|16-byte"):
+            fa_ops.flash_attention(ok, bad, ok)
+    assert fa_ops.flash_attention_cuda.launches == n
 
 
 def test_flash_attention_refuses_what_it_does_not_take(dev):

@@ -1,7 +1,9 @@
 """The port's commit scan (plain version) against the reference's
 ``placement_commit_ref`` and its Pallas kernel (interpret mode), static and
-dynamic modes: node_of exact, the final tally bitwise on grid data. Plus
-the all-infeasible row and ``pending_batch``'s tie order against
+dynamic modes: node_of exact, the final tally bitwise on grid data; at
+N=20,000 too, past the node count one block's shared memory once held, for
+``placement_commit`` and ``sched_pass`` (every family). Plus the
+all-infeasible row and ``pending_batch``'s tie order against
 ``jax.lax.top_k``."""
 import dataclasses
 
@@ -14,6 +16,7 @@ import torch
 from repro.config import REDUCED_SIM as REF_REDUCED
 from repro.core.state import init_state as ref_init_state
 from repro.kernels.placement_commit.ops import placement_commit as pc_jax
+from repro.kernels.placement_commit.ops import sched_pass as sched_jax
 from repro.kernels.placement_commit.ref import placement_commit_ref as ref_pc
 from repro.sched.base import base_pass as ref_base_pass
 from repro_torch.config import REDUCED_SIM
@@ -57,6 +60,41 @@ def test_plain_matches_reference_ref_and_kernel(P, N, dynamic):
     np.testing.assert_array_equal(node_of, np.asarray(k_n))
     np.testing.assert_array_equal(tally, np.asarray(k_t))
     assert (node_of >= 0).any() and (node_of == -1).any()
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_large_n_plain_matches_reference(dynamic):
+    """N=20,000, P=8: the reference takes this node count, and so must the
+    port (its kernels once refused N*R > 58,112)."""
+    args = _inputs(20 + dynamic, 8, 20000)
+    node_of, tally = _port(args, dynamic)
+    want_n, want_t = ref_pc(*map(jnp.asarray, args), dynamic_bestfit=dynamic)
+    np.testing.assert_array_equal(node_of, np.asarray(want_n))
+    np.testing.assert_array_equal(tally, np.asarray(want_t))
+    assert (node_of >= 0).any()
+
+
+@pytest.mark.parametrize("family", [pc_ops.FAM_SCORES, pc_ops.FAM_NODE_ORDER,
+                                    pc_ops.FAM_EXTERNAL])
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_large_n_sched_pass_matches_reference(family, dynamic):
+    """The fused pass for one lane at N=20,000, P=8, each proposal family
+    (node order from a rotated start), against the reference's sched_pass
+    (its jnp path: pref derived, then the commit)."""
+    pref, req, ok, valid, total, denom, res0 = _inputs(30 + family, 8, 20000)
+    scores = np.where(ok, pref, -np.inf).astype(np.float32)
+    ext = (pref[::-1] * 0.5).astype(np.float32)
+    start = 6_789
+    args = (scores, req, ok, valid, total, denom, res0)
+    got_n, got_t = pc_ops.sched_pass(
+        *[torch.from_numpy(a) for a in args], dynamic, family=family,
+        start=start, ext=torch.from_numpy(ext), return_tally=True)
+    want_n, want_t = sched_jax(*map(jnp.asarray, args), dynamic,
+                               family=family, start=start,
+                               ext=jnp.asarray(ext), return_tally=True)
+    np.testing.assert_array_equal(got_n.numpy(), np.asarray(want_n))
+    np.testing.assert_array_equal(got_t.numpy(), np.asarray(want_t))
+    assert (got_n.numpy() >= 0).any()
 
 
 @pytest.mark.parametrize("dynamic", [False, True])

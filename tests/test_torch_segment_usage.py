@@ -1,6 +1,8 @@
 """The port's segment-usage plain version against the reference's jnp
 oracle and Pallas kernel (interpret mode): masks, unplaced (-1) rows, an
-all-masked table; grid data bitwise, off-grid data to rtol 1e-6."""
+all-masked table, 70,000 nodes with 12 value columns (past the kernel's
+old ceilings); grid data bitwise, off-grid data to rtol 1e-6. Plus the
+kernel's digit-pass count and scratch size."""
 import numpy as np
 import pytest
 import torch
@@ -115,16 +117,55 @@ def test_lanes_are_independent_and_single_lane_form_agrees():
                            su_ops.segment_usage(node[b], vals[b], mask[b], N))
 
 
-@pytest.mark.parametrize("B,T", [(1, 1), (1, 262144), (8, 262144),
-                                 (3, 1025)])
-def test_kernel_scratch_size(B, T):
-    """The wrapper's scratch: per-tile digit counts, two passes' digit
+@pytest.mark.parametrize("B,T,n_nodes", [(1, 1, 1), (1, 262144, 12500),
+                                         (8, 262144, 12500),
+                                         (3, 1025, 70000)])
+def test_kernel_scratch_size(B, T, n_nodes):
+    """The wrapper's scratch: per-tile digit counts, each digit pass's
     totals, the kept counts, two (B, T) permutations and the sorted node
-    ids, as csrc/segment_usage.cu lays them out."""
+    ids, as csrc/segment_usage.cu lays them out (cell A: two passes)."""
     tiles = -(-T // su_ops.TILE)
-    assert su_ops.scratch_ints(B, T) == B * (
-        su_ops.RADIX * tiles + 2 * su_ops.RADIX + 1 + 3 * T)
-    assert su_ops.RADIX ** 2 == su_ops.MAX_NODES
+    passes = su_ops.digit_passes(n_nodes)
+    assert passes == {1: 1, 12500: 2, 70000: 3}[n_nodes]
+    assert su_ops.scratch_ints(B, T, passes) == B * (
+        su_ops.RADIX * tiles + passes * su_ops.RADIX + 1 + 3 * T)
+
+
+def test_digit_passes_cover_every_node_id():
+    """For every N from 1 to 250,000 the passes never refuse and sort
+    each id 0..N-1 once: the 7-bit digits of N - 1, the largest id, fit
+    (so every id's do, and the LSD passes order them all), and one pass
+    fewer would drop the top digit of some id (the count is the least);
+    any int32 id takes at most 5 passes."""
+    n = np.arange(1, 250_001, dtype=np.int64)
+    passes = np.array([su_ops.digit_passes(int(x)) for x in n])
+    bits = su_ops.DIGIT_BITS
+    assert passes.min() == 1 and passes.max() == 3
+    assert np.all((n - 1) >> (bits * passes) == 0)
+    more = passes > 1
+    assert np.all((n[more] - 1) >> (bits * (passes[more] - 1)) != 0)
+    assert su_ops.digit_passes(2 ** 31 - 1) == 5
+
+
+def test_many_nodes_and_columns_match_reference():
+    """70,000 nodes (three 7-bit digit passes on the card) and V=12 (two
+    column groups there): the lane form against jax.vmap of the
+    reference's jnp oracle, grid data bitwise."""
+    import jax
+    B, T, N, V = 2, 6000, 70000, 12
+    r = np.random.default_rng(70)
+    node = np.where(r.random((B, T)) < 0.5, r.integers(-1, N, (B, T)),
+                    N - 1 - r.integers(0, 40, (B, T))).astype(np.int32)
+    vals = (r.integers(0, 48, (B, T, V)) / 128).astype(np.float32)
+    mask = r.random((B, T)) < 0.7
+    got = su_ops.segment_usage_lanes(torch.from_numpy(node),
+                                     torch.from_numpy(vals),
+                                     torch.from_numpy(mask), N).numpy()
+    want = jax.vmap(lambda n, v, m: segment_usage_ref(n, v, m, N))(
+        node, vals, mask)
+    assert got.shape == (B, N, V)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert got[:, N - 40:].any()
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
