@@ -7,10 +7,13 @@ Phases, each printing its own lines:
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: the seven CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
      one process per source, seconds and ptxas register/shared-memory
-     lines);
+     lines), and beside them the two bench programs of phase 8
+     (``src/repro_torch/bench/match_store.cu``, ``stats_split.cu``);
   3. each kernel against its plain PyTorch version on the card, at the
      shapes of the paper's cell A, on grid-aligned inputs made from a seed
      (integers and sums bitwise, variances within rtol 2.5e-7);
+     window_stats also at the fleet's B=8 (one launch, each lane against
+     the plain version, two calls bitwise equal);
      segment_usage in its lane form at B=1 and B=8 (one launch), uniform
      and Zipf-skewed nodes, also off the grid, there bitwise against the
      host's f32 sum in task order; the fleet's shapes too, B=8 lanes:
@@ -84,7 +87,12 @@ Phases, each printing its own lines:
      sched_commit (and constraint_match and segment_usage) at the
      fleet's, flash_attention at the serving path's, fused_ce at the
      training path's (the library yardstick there is two calls:
-     ``linear`` and ``cross_entropy``); for placement_commit and
+     ``linear`` and ``cross_entropy``); window_stats also at the fleet's
+     B=8; constraint_match as the paths call it (``node_active`` folded
+     inside the kernel); the bench programs' lines: constraint_match's
+     TMA tile store and task-run lengths against its shipped form, and
+     window_stats against the two stages of its parent design timed
+     apart; for placement_commit and
      sched_commit also the cluster size the scan chose and its latency
      floor (the same P tasks over one node a block, where a task is one
      block reduction and one exchange of the blocks' pairs and nothing
@@ -107,6 +115,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import subprocess
 import sys
 import tempfile
 import time
@@ -201,6 +210,39 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+BENCHES = ("match_store", "stats_split")   # src/repro_torch/bench/*.cu
+
+
+def start_bench_builds(build) -> dict:
+    """Start one nvcc a bench program, beside the kernels' own build;
+    returns {name: (executable, process)}."""
+    out = build.build_dir().parent / "bench"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in BENCHES:
+        exe = out / name
+        cmd = [build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-O3", "-std=c++17", "--fmad=false", "-I",
+               str(build.CSRC), str(ROOT / "src/repro_torch/bench" /
+                                    f"{name}.cu"), "-o", str(exe), "-ldl"]
+        procs[name] = (exe, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    return procs
+
+
+def run_bench(exe: Path) -> dict:
+    """Run a bench program; print its lines; return its last line's JSON."""
+    done = subprocess.run([str(exe)], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True, timeout=300)
+    lines = done.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    assert done.returncode == 0 and lines, \
+        f"{exe.name} failed ({done.returncode}):\n{done.stdout}"
+    return json.loads(lines[-1])
 
 
 def profile_call(torch, fn, label: str) -> dict:
@@ -302,11 +344,17 @@ def main(argv=None) -> int:
 
     # ---- 2. build -----------------------------------------------------
     t0 = time.time()
+    benches = start_bench_builds(_build)
     _build.library()
     print(f"build: {time.time() - t0:.1f}s -> {_build.BUILD_INFO['path']}")
     for line in str(_build.BUILD_INFO["ptxas"]).splitlines():
         if line.startswith("==") or "Used" in line or "spill" in line:
             print("  " + line.strip())
+    for name, (exe, proc) in benches.items():
+        text, _ = proc.communicate()
+        assert proc.returncode == 0, f"nvcc failed for {name}:\n{text}"
+    print(f"bench programs built in {time.time() - t0:.1f}s: "
+          f"{', '.join(benches)}")
 
     cfg = agocs_cell_a.CONFIG
     P, N, T = cfg.sched_batch, cfg.max_nodes, cfg.max_tasks
@@ -397,9 +445,49 @@ def main(argv=None) -> int:
             assert np.array_equal(a, b), f"C {f}: {a!r} vs {b!r}"
         c_err = max(c_err, float(np.abs(a.astype(np.float64)
                                         - b.astype(np.float64)).max()))
-    results["window_stats"]["max_abs_err"] = c_err
     print(f"C window_stats T={T} N={N}: counts/histogram exact, sums "
           f"bitwise, variances within rtol {ULP_RTOL}")
+    # C at the fleet's B=8 in one launch, on its own random stream (the
+    # later phases' inputs stay those of earlier versions of this script);
+    # each lane against the plain version, and two calls bitwise equal
+    def c_lane_inputs():
+        """C's B=8 inputs (made again for phase 8, so that they do not
+        count in the serving and training phases' peak memory)."""
+        crng = np.random.default_rng(args.seed + 17)
+        return (cuda(crng.integers(0, 3, (FLEET_B, T)).astype(np.int8)),
+                cuda(grid(crng, 0, 16, (FLEET_B, T, U))),
+                cuda(crng.integers(-1, 13, (FLEET_B, T)).astype(np.int32)),
+                cuda(crng.random((FLEET_B, N)) < 0.95),
+                cuda(grid(crng, 64, 256, (FLEET_B, N, R))),
+                cuda(grid(crng, 0, 64, (FLEET_B, N, R))),
+                cuda(grid(crng, 0, 64, (FLEET_B, N, R))))
+
+    c_lanes = c_lane_inputs()
+    n0 = ws_ops.window_stats_cuda.launches
+    red_k = ws_ops.window_reductions(*c_lanes)
+    red_again = ws_ops.window_reductions(*c_lanes)
+    assert ws_ops.window_stats_cuda.launches == n0 + 2
+    for f in red_k._fields:
+        assert torch.equal(getattr(red_k, f), getattr(red_again, f)), \
+            f"C B={FLEET_B} {f}: two calls differ"
+    for b in range(FLEET_B):
+        red_r = window_reductions_ref(*[x[b] for x in c_lanes])
+        for f in red_k._fields:
+            a = getattr(red_k, f)[b].cpu().numpy()
+            w = getattr(red_r, f).cpu().numpy()
+            if f in ("util_var", "res_var"):
+                assert np.allclose(a, w, rtol=ULP_RTOL, atol=0), \
+                    f"C B={FLEET_B} lane {b} {f}: {a!r} vs {w!r}"
+            else:
+                assert np.array_equal(a, w), \
+                    f"C B={FLEET_B} lane {b} {f}: {a!r} vs {w!r}"
+            c_err = max(c_err, float(np.abs(a.astype(np.float64)
+                                            - w.astype(np.float64)).max()))
+    results["window_stats"]["max_abs_err"] = c_err
+    print(f"C window_stats B={FLEET_B} T={T} N={N} (one launch): each lane "
+          f"counts/histogram exact, sums bitwise, variances within rtol "
+          f"{ULP_RTOL}; two calls bitwise equal")
+    del c_lanes, red_k, red_again, red_r
 
     # E: segment_usage in its lane form, at the main path's B=1 and the
     # fleet's B=8 (one launch for all lanes), uniform and Zipf-skewed
@@ -1203,7 +1291,8 @@ def main(argv=None) -> int:
                              bound_ms=b_ms, bound_by=b_by)
         lib = f"{lib_ms:.4f}" if lib_ms is not None else "-"
         shapes = (f"fleet B={Bf}" if name == "sched_commit"
-                  else "main path")
+                  else "main path, node_active folded inside the kernel"
+                  if name == "constraint_match" else "main path")
         scan = ""
         if name in clusters:
             results[name].update(cluster=clusters[name],
@@ -1224,9 +1313,28 @@ def main(argv=None) -> int:
                           Bf * P * N * (6 * R + 2 * C))
     results["constraint_match"]["fleet"] = dict(
         lanes=Bf, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    print(f"time constraint_match (fleet B={Bf}, one launch): kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}) [{smi}]")
+    print(f"time constraint_match (fleet B={Bf}, one launch, node_active "
+          f"folded inside): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}) [{smi}]")
+    # C with its lane axis at the fleet's shapes (B=8, one launch)
+    c_lanes = c_lane_inputs()
+    ms = time_ms(torch, lambda: ws_ops.window_reductions(*c_lanes), 20)
+    plain_ms = time_ms(torch, lambda: [window_reductions_ref(
+        *[x[b] for x in c_lanes]) for b in range(Bf)], 3, warmup=1)
+    b_ms, b_by = bound_ms(nbytes(*c_lanes) + Bf * (3 + 24 + U + 3 * R + 2)
+                          * 4, Bf * (T * (2 * U + 4) + N * (8 * R + 8)))
+    results["window_stats"]["fleet"] = dict(
+        lanes=Bf, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"time window_stats (fleet B={Bf}, one launch): kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
+          f"[{smi}]")
+    # the bench programs: A's other store and run forms, C's parent design
+    # with its two stages timed apart (each checked against this build)
+    bench = {name: run_bench(exe) for name, (exe, _) in benches.items()}
+    results["constraint_match"]["forms"] = bench["match_store"]["match_store"]
+    results["window_stats"]["parent_split"] = \
+        bench["stats_split"]["stats_split"]
+    print(f"bench programs [{smi}]")
     # E with its lane axis at the fleet's shapes (B=8, V=3, one launch);
     # the library yardstick is index_add_ over the same lanes, flattened
     el_node, el_vals, el_mask = e_lanes[:3]
@@ -1325,7 +1433,8 @@ def main(argv=None) -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **({"fleet": r["fleet"]} if "fleet" in r else {}),
+            **({k: r[k] for k in ("fleet", "forms", "parent_split")
+                if k in r}),
             **({k: r[k] for k in ("cluster", "latency_floor_ms") if k in r}),
             **({"body": G_TC_BODY, "launches_tc": g_tc}
                if name == "fused_ce" else {}),

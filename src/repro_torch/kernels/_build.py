@@ -43,15 +43,14 @@ F = ctypes.c_float
 # C signatures: pointers and the stream as void*, sizes as int, strides as
 # long long, scales as float
 SIGNATURES: Dict[str, List] = {
-    "constraint_match_launch": [P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "constraint_match_launch": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     "placement_commit_launch": [P, P, P, P, P, P, P, P, P,
                                 I, I, I, I, I, I, P],
     "placement_commit_cluster": [I, I],
     "sched_commit_launch": [P, P, P, P, P, P, P, P, P, P,
                             I, I, I, I, I, P],
     "sched_commit_cluster": [I, I],
-    "window_stats_launch": [P, P, P, P, P, P, P, P, P, P, P, P, P,
-                            I, I, I, I, I, I, P],
+    "window_stats_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     "segment_usage_launch": [P, P, P, P, P, L, I, I, I, I, I, P],
     "flash_attention_launch": [P, P, P, P, L, L, L, L, L, L, L, L, L,
                                I, I, I, I, I, I, F, P],

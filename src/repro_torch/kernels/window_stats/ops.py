@@ -10,8 +10,6 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.window_stats.ref import (N_PRIO, WindowReductions,
                                                   window_reductions_ref)
 
-TASKS_PER_BLOCK = 1024     # stage-1 task chunk (4 rows per thread)
-
 
 def window_stats_cuda(task_state, task_usage, task_prio, node_active,
                       node_total, node_reserved, node_used):
@@ -20,7 +18,7 @@ def window_stats_cuda(task_state, task_usage, task_prio, node_active,
     node_total/node_reserved/node_used (B,N,R) f32 -> (counts (B,3) i32 =
     [n_running, n_pending, n_nodes], by_prio (B,12,2) i32, usage_sum (B,U)
     f32, node_red (B,3R+2) f32 = [cap | reserved | used | util_var,
-    res_var])."""
+    res_var]); views of one i32 and one f32 buffer, one launch."""
     B, T = task_state.shape
     U = task_usage.shape[2]
     N, R = node_total.shape[1], node_total.shape[2]
@@ -32,21 +30,15 @@ def window_stats_cuda(task_state, task_usage, task_prio, node_active,
                     ("node_reserved", node_reserved),
                     ("node_used", node_used)):
         _build.check(t, name, torch.float32, (B, N, R))
-    G = max(1, min(1024, -(-T // TASKS_PER_BLOCK)))
     dev = task_state.device
-    counts = torch.empty((B, 3), dtype=torch.int32, device=dev)
-    by_prio = torch.empty((B, N_PRIO, 2), dtype=torch.int32, device=dev)
-    usage_sum = torch.empty((B, U), dtype=torch.float32, device=dev)
-    node_red = torch.empty((B, 3 * R + 2), dtype=torch.float32, device=dev)
-    part_hist = torch.empty((B, G, 2 * N_PRIO), dtype=torch.int32,
-                            device=dev)
-    part_usum = torch.empty((B, G, U), dtype=torch.float32, device=dev)
+    ints = torch.empty((B, 3 + 2 * N_PRIO), dtype=torch.int32, device=dev)
+    floats = torch.empty((B, U + 3 * R + 2), dtype=torch.float32, device=dev)
     _build.launch("window_stats_launch", task_state, task_usage, task_prio,
-                  node_active, node_total, node_reserved, node_used, counts,
-                  by_prio, usage_sum, node_red, part_hist, part_usum,
-                  B, T, U, N, R, G)
+                  node_active, node_total, node_reserved, node_used, ints,
+                  floats, B, T, U, N, R)
     window_stats_cuda.launches += 1
-    return counts, by_prio, usage_sum, node_red
+    return (ints[:, :3], ints[:, 3:].unflatten(1, (N_PRIO, 2)),
+            floats[:, :U], floats[:, U:])
 
 
 window_stats_cuda.launches = 0

@@ -3,7 +3,9 @@ oracle and its Pallas kernel (interpret mode), on the same numpy inputs.
 
 Grid-aligned inputs (multiples of 1/128) are held bitwise; off-grid inputs
 to rtol 1e-6 with the feasibility mask exact. The CUDA kernel itself is
-compared with this plain version on the card by chip_smoke.py.
+compared with this plain version on the card (chip_smoke.py and
+tests/test_torch_kernels_cuda.py) at cell A's width, so this plain version
+is held to the reference's jnp oracle there too.
 """
 import numpy as np
 import pytest
@@ -74,11 +76,31 @@ def test_off_grid_inputs():
     np.testing.assert_allclose(got[fin], want[fin], rtol=1e-6)
 
 
+@pytest.mark.slow       # ~6 s on one CPU thread: 12.8 M pairs, twice
+def test_plain_matches_reference_at_cell_a_width():
+    """Cell A's scheduling pass: P=1,024 tasks x N=12,500 nodes, R=3, C=6,
+    K=16 (chip_smoke.py's inputs), bitwise against the jnp oracle."""
+    P, N, R, C, K = 1024, 12500, 3, 6, 16
+    r = np.random.default_rng(17)
+
+    def g(lo, hi, shape):
+        return (r.integers(lo, hi, shape) / 128).astype(np.float32)
+
+    cons = np.stack([r.integers(0, K, (P, C)),
+                     np.where(r.random((P, C)) < 0.8, 0,
+                              r.integers(1, 5, (P, C))),
+                     r.integers(0, 4, (P, C))], axis=-1).astype(np.int32)
+    args = (g(1, 48, (P, R)), cons, g(64, 256, (N, R)), g(0, 64, (N, R)),
+            r.integers(0, 4, (N, K)).astype(np.int32), r.random(N) < 0.95)
+    got = _port(args)
+    np.testing.assert_array_equal(got, np.asarray(constraint_match_ref(*args)))
+    assert np.isfinite(got).any() and np.isinf(got).any()
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     """The kernel wrapper launches only on CUDA tensors; the CPU path goes
     through the plain version by dispatch, never by a fallback."""
-    args = [torch.from_numpy(a)[None] for a in _inputs(3, 8, 8)]
-    req, cons, total, reserved, attrs, _ = args     # one lane
+    args = [torch.from_numpy(a)[None] for a in _inputs(3, 8, 8)]  # one lane
     with pytest.raises(ValueError, match="CUDA"):
-        cm_ops.constraint_match_cuda(req, cons, total, reserved, attrs)
+        cm_ops.constraint_match_cuda(*args)
     assert cm_ops.constraint_match_cuda.launches == 0

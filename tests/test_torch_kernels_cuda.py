@@ -68,19 +68,51 @@ def _g(r, lo, hi, shape):
                             .astype(np.float32))
 
 
-@pytest.mark.parametrize("B,P,N", [(1, 1, 1), (1, 7, 129), (1, 130, 300),
-                                   (3, 9, 140)])
-def test_constraint_match(dev, B, P, N):
-    r = np.random.default_rng(B + P + N)
-    C, K = 6, 16
+def _wide(r, shape, zeros=0.02):
+    """Magnitudes 2^-50 .. 2^50 (inside and outside the range the kernel's
+    hoisted-reciprocal divide takes), with +0 and -0 sprinkled in."""
+    v = np.exp2(r.uniform(-50, 50, shape)) * r.uniform(0.5, 2.0, shape)
+    v[r.random(shape) < zeros] = 0.0
+    v[r.random(shape) < zeros] = -0.0
+    return torch.from_numpy(v.astype(np.float32))
+
+
+# (B, P, N, C, K, share of inactive nodes, values): tiles of 32 tasks x
+# 512 nodes cut anywhere, rows that do not start on 16 bytes (N % 4 != 0,
+# N=12,501), no and 16 constraint slots, K of 13 (no 16-byte attribute
+# rows) and 64, every node inactive, the fleet's B=8 at cell A's width;
+# "wide" values spread over 100 binades (both divide paths, bitwise)
+@pytest.mark.parametrize("B,P,N,C,K,dead,values", [
+    (1, 1, 1, 6, 16, 0.2, "grid"), (1, 7, 129, 6, 16, 0.2, "grid"),
+    (1, 130, 300, 6, 16, 0.2, "grid"), (3, 9, 140, 6, 16, 0.2, "grid"),
+    (1, 33, 513, 6, 16, 0.2, "grid"), (1, 40, 12501, 6, 16, 0.2, "grid"),
+    (2, 37, 700, 0, 16, 0.2, "grid"), (2, 37, 700, 16, 16, 0.2, "grid"),
+    (1, 50, 600, 6, 13, 0.2, "grid"), (1, 64, 1000, 6, 64, 0.2, "grid"),
+    (2, 20, 300, 6, 16, 1.0, "grid"), (8, 1024, 12500, 6, 16, 0.05, "grid"),
+    (1, 300, 3001, 0, 16, 0.05, "wide"),
+    (2, 1024, 12500, 6, 16, 0.05, "wide")])
+def test_constraint_match(dev, B, P, N, C, K, dead, values):
+    r = np.random.default_rng(B + P + N + C + K)
+    imin, imax = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    vals = r.integers(0, 4, (B, P, C))
+    vals[r.random((B, P, C)) < 0.05] = imin    # LT/GT with nothing below
+    vals[r.random((B, P, C)) < 0.05] = imax    # or above
+    attrs = r.integers(0, 4, (B, N, K))
+    attrs[r.random((B, N, K)) < 0.02] = imin
+    attrs[r.random((B, N, K)) < 0.02] = imax
     cons = torch.from_numpy(np.stack(
-        [r.integers(-2, K + 2, (B, P, C)), r.integers(0, 6, (B, P, C)),
-         r.integers(0, 4, (B, P, C))], -1).astype(np.int32))
+        [r.integers(-K - 2, K + 2, (B, P, C)), r.integers(0, 6, (B, P, C)),
+         vals], -1).astype(np.int32))
+    if values == "grid":
+        req, total = _g(r, 1, 48, (B, P, 3)), _g(r, 16, 256, (B, N, 3))
+        reserved = _g(r, 0, 160, (B, N, 3))
+    else:                   # free below, at and above the requests
+        req, total = _wide(r, (B, P, 3)), _wide(r, (B, N, 3))
+        reserved = total * torch.from_numpy(
+            r.choice([0.0, 0.5, 1.0, 1.5], (B, N, 3)).astype(np.float32))
     args = [x.to(dev) for x in (
-        _g(r, 1, 48, (B, P, 3)), cons, _g(r, 16, 256, (B, N, 3)),
-        _g(r, 0, 160, (B, N, 3)),
-        torch.from_numpy(r.integers(0, 4, (B, N, K)).astype(np.int32)),
-        torch.from_numpy(r.random((B, N)) < 0.8))]
+        req, cons, total, reserved, torch.from_numpy(attrs.astype(np.int32)),
+        torch.from_numpy(r.random((B, N)) >= dead))]
     if B == 1:
         args = [x[0] for x in args]
     before = cm_ops.constraint_match_cuda.launches
@@ -90,6 +122,10 @@ def test_constraint_match(dev, B, P, N):
         lane = args if B == 1 else [x[b] for x in args]
         want = constraint_match_ref(*lane)
         assert torch.equal(got if B == 1 else got[b], want)
+    if dead == 1.0:
+        assert bool(torch.isneginf(got).all())
+    if values == "wide":    # both divide paths ran on feasible pairs
+        assert bool(torch.isfinite(got).any())
 
 
 @pytest.mark.parametrize("mode", ["static", "dynamic", "both"])
@@ -242,28 +278,58 @@ def test_commit_scan_cluster_size(dev):
             assert pc_ops.cluster_size(kernel, lanes) in (8, 16)
 
 
-@pytest.mark.parametrize("B,T,N", [(1, 1000, 77), (2, 5000, 1100)])
-def test_window_stats_lanes(dev, B, T, N):
-    r = np.random.default_rng(T + N)
+# (B, T, N, U, kind): T and N cut anywhere by the 16 chunks of a lane,
+# more nodes than the cluster has threads (150,000), U without 16-byte rows
+# (3) and above 8 (12), a lane with no active node, off-grid data, and the
+# fleet's B=8 at cell A's width
+@pytest.mark.parametrize("B,T,N,U,kind", [
+    (1, 1000, 77, 8, "grid"), (2, 5000, 1100, 8, "grid"),
+    (1, 262147, 12503, 8, "grid"), (1, 3000, 150000, 8, "grid"),
+    (1, 5000, 1100, 3, "grid"), (2, 5000, 1100, 12, "grid"),
+    (3, 7001, 2000, 8, "no_active_lane"), (2, 70001, 12500, 8, "off_grid"),
+    (8, 262144, 12500, 8, "grid")])
+def test_window_stats_lanes(dev, B, T, N, U, kind):
+    r = np.random.default_rng(T + N + U)
+    off = kind == "off_grid"
+
+    def vals(lo, hi, shape):
+        if off:
+            return torch.from_numpy(r.uniform(lo / 128, hi / 128, shape)
+                                    .astype(np.float32))
+        return _g(r, lo, hi, shape)
+
+    active = r.random((B, N)) < 0.8
+    if kind == "no_active_lane":
+        active[1] = False
     ins = [torch.from_numpy(r.integers(0, 3, (B, T)).astype(np.int8)),
-           _g(r, 0, 32, (B, T, 8)),
+           vals(0, 32, (B, T, U)),
            torch.from_numpy(r.integers(-2, 14, (B, T)).astype(np.int32)),
-           torch.from_numpy(r.random((B, N)) < 0.8),
-           _g(r, 16, 256, (B, N, 3)), _g(r, 0, 128, (B, N, 3)),
-           _g(r, 0, 64, (B, N, 3))]
+           torch.from_numpy(active), vals(16, 256, (B, N, 3)),
+           vals(0, 128, (B, N, 3)), vals(0, 64, (B, N, 3))]
     ins = [x.to(dev) for x in ins]
-    counts, by_prio, usum, node_red = ws_ops.window_stats_cuda(*ins)
+    before = ws_ops.window_stats_cuda.launches
+    outs = ws_ops.window_stats_cuda(*ins)
+    assert ws_ops.window_stats_cuda.launches == before + 1
+    again = ws_ops.window_stats_cuda(*ins)
+    for x, y in zip(outs, again):           # deterministic
+        assert torch.equal(x, y)
+    counts, by_prio, usum, node_red = outs
     for b in range(B):
         w = window_reductions_ref(*[x[b] for x in ins])
         assert counts[b].tolist() == [int(w.n_running), int(w.n_pending),
                                       int(w.n_nodes)]
         assert torch.equal(by_prio[b], w.by_prio)
-        assert torch.equal(usum[b], w.usage_sum)
-        assert torch.equal(node_red[b, :9],
-                           torch.cat([w.cap, w.reserved, w.used]))
+        sums = torch.cat([w.usage_sum, w.cap, w.reserved, w.used])
+        if off:
+            torch.testing.assert_close(torch.cat([usum[b], node_red[b, :9]]),
+                                       sums, rtol=1e-5, atol=0)
+        else:
+            assert torch.equal(torch.cat([usum[b], node_red[b, :9]]), sums)
         torch.testing.assert_close(
             node_red[b, 9:], torch.stack([w.util_var, w.res_var]),
             rtol=2.5e-7, atol=0)
+    if kind == "no_active_lane":
+        assert counts[1, 2] == 0 and not bool(node_red[1, 9:].any())
 
 
 @pytest.mark.parametrize("T,N,V", [(5000, 1000, 3), (300, 65, 1),

@@ -111,6 +111,29 @@ def test_fused_and_unfused_rows_agree():
         _assert_close(k, fused[k].numpy(), unfused[k].numpy())
 
 
+def test_reductions_match_reference_at_cell_a_width():
+    """Cell A's table: T=262,144 task slots (U=8), N=12,500 nodes, R=3, on
+    grid data: counts, histogram and sums bitwise, the variances within
+    rtol 2.5e-7 of the reference's jnp oracle."""
+    T, N, U, R = 262144, 12500, 8, 3
+    r = np.random.default_rng(17)
+
+    def g(lo, hi, shape):
+        return (r.integers(lo, hi, shape) / 128).astype(np.float32)
+
+    s = {"task_state": r.integers(0, 3, T).astype(np.int8),
+         "task_usage": g(0, 16, (T, U)),
+         "task_prio": r.integers(-1, 13, T).astype(np.int32),
+         "node_active": r.random(N) < 0.95,
+         "node_total": g(64, 256, (N, R)), "node_reserved": g(0, 64, (N, R)),
+         "node_used": g(0, 64, (N, R))}
+    got = window_reductions(*_red_args(s, torch.from_numpy))
+    want = wr_jax(*_red_args(s, jnp.asarray))
+    for f in got._fields:
+        _assert_close(f, getattr(got, f).numpy(), getattr(want, f))
+    assert int(got.n_running) > 0 and int(got.n_pending) > 0
+
+
 def test_window_stats_ignores_fused_flag():
     """Like use_kernels, fused_window_stats is kept for config equality
     only: the row is the fused one whatever the flag says."""
