@@ -7,7 +7,7 @@ Phases, each printing its own lines:
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: the seven CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
      one process per source, seconds and ptxas register/shared-memory
-     lines), and beside them the two bench programs of phase 8
+     lines), and beside them the two bench programs of phase 9
      (``src/repro_torch/bench/match_store.cu``, ``stats_split.cu``);
   3. each kernel against its plain PyTorch version on the card, at the
      shapes of the paper's cell A, on grid-aligned inputs made from a seed
@@ -47,7 +47,28 @@ Phases, each printing its own lines:
      0 against a ``Simulation`` of the same windows, bitwise; a
      torch.profiler trace of 16 warm fleet windows; plus a small fleet on
      the card against the CPU, both dispatch paths;
-  6. the serving path: qwen3-4b at full width (36 layers, d_model 2560,
+  6. stochastic schedulers, snapshots and replay at cell A: the key
+     stream (``core.prng``: split, uniform, randint) on the card against
+     the CPU, bitwise, at (1,024 x 12,500) and the GA population's (8,
+     1,024, 12,500), and the times of one (1,024 x 12,500) uniform and of
+     one GA generation's pair of draws; kernel E at the searches' surrogate
+     shapes (T=1,024, V=3, N=12,500; B=1 for SA and tabu, B=8 for the
+     GA's population, the rows expanded over the lanes as the surrogate
+     passes them), one launch a call, bitwise against its plain version,
+     with its times; ``Simulation`` with ``random``,
+     ``simulated_annealing``, ``tabu_search`` and ``genetic`` for 8 windows
+     each (batches of 4; counts reset before and read after each run; E's
+     launches exactly 65, 49 and 5 a window for the three searches),
+     invariants, windows/s, and one traced window's device time beside
+     its search's own; a 4-lane fleet of one lane each, switchless (the
+     searches' preferences reach kernel D as external rows), each lane
+     bitwise equal to its scheduler's ``Simulation``; a
+     ``simulated_annealing`` run paused at window 4, saved, restored and
+     run to window 8 equal to the straight run in every state field; the
+     fleet's 8 windows pre-compiled, and a fleet ``from_precompiled(
+     start_window=4)`` restored from its snapshot there equal to the
+     uninterrupted fleet (every state field, trailing stats rows);
+  7. the serving path: qwen3-4b at full width (36 layers, d_model 2560,
      vocab 151,936; f32 parameters from a torch.Generator seeded 0 on the
      card, bf16 activations and cache), ``ServingEngine.generate`` on 4
      prompts of 512 random tokens, 32 new tokens each, with
@@ -61,7 +82,7 @@ Phases, each printing its own lines:
      prefill logit rows within 2e-2 relative L2 with f32 activations (in
      bf16 each impl's rows lie ~2e-2 from the f32 rows, so the bf16
      distances are printed beside them, not held to that bar);
-  7. the training path: the serving phase's memory released, then
+  8. the training path: the serving phase's memory released, then
      qwen3-4b at full width (the same widths and depth; f32 parameters
      from a torch.Generator seeded 0 on the card, AdamW's f32 moments,
      bf16 activations) with ``chunked_ce=True`` and the reference's
@@ -81,7 +102,7 @@ Phases, each printing its own lines:
      a crash injected at step 4: it must recover, and its losses must
      match within 1e-5 (the largest difference, and whether the two are
      bitwise, printed);
-  8. kernel times at the main path's shapes (CUDA events, L2 flushed,
+  9. kernel times at the main path's shapes (CUDA events, L2 flushed,
      the host queued ahead of the device, median) beside the plain
      version, the library call where one exists, and the bound;
      sched_commit (and constraint_match and segment_usage) at the
@@ -97,9 +118,9 @@ Phases, each printing its own lines:
      floor (the same P tasks over one node a block, where a task is one
      block reduction and one exchange of the blocks' pairs and nothing
      else);
-  9. a ``kernels:`` status line and the JSON kernel table (seven
-     kernels, launches by path; F's body and tensor-core launches, B and
-     D's cluster size).
+  10. a ``kernels:`` status line, phase 6's numbers as one JSON line, and
+     the JSON kernel table (seven kernels, launches by path; F's body and
+     tensor-core launches, B and D's cluster size; E's surrogate shape).
 
 The seven CUDA kernels are built at first use from every
 ``src/repro_torch/csrc/*.cu`` (one nvcc per source, all started together)
@@ -160,6 +181,10 @@ G_TC_BODY = "tensor cores: TMA + wgmma m64n256k16, bf16 in, f32 out"
 BIG_N = (20_000, 150_000)     # B and D past the old node ceiling
 BIG_P = 64
 E_BIG_N, E_BIG_V = 70_000, 12  # E past its old ceilings (3 passes)
+STOCHASTIC = ("random", "simulated_annealing", "tabu_search", "genetic")
+STOCH_WINDOWS = 8             # windows of each stochastic run (phase 6)
+STOCH_BATCH = 4               # their batches: a snapshot between two
+GA_POP = 8                    # the genetic scheduler's population
 
 
 PLUGIN = "smoke_pack_left"     # the fleet's external-family lane
@@ -245,7 +270,7 @@ def run_bench(exe: Path) -> dict:
     return json.loads(lines[-1])
 
 
-def profile_call(torch, fn, label: str) -> dict:
+def profile_call(torch, fn, label: str, top: int = 15) -> dict:
     """torch.profiler over one call of ``fn``: the top device time by name
     and the summed device time over the wall time. Returns the device
     microseconds and launch count by kernel name."""
@@ -272,7 +297,7 @@ def profile_call(torch, fn, label: str) -> dict:
           f"summed device time {busy / 1e3:.3f} ms "
           f"(busy share {busy / wall_us:.3f})")
     for key, (dev_us, count) in sorted(rows.items(),
-                                       key=lambda kv: -kv[1][0])[:15]:
+                                       key=lambda kv: -kv[1][0])[:top]:
         print(f"  {dev_us / 1e3:10.3f} ms  x{count:<6d} {key[:90]}")
     return rows
 
@@ -316,7 +341,12 @@ def main(argv=None) -> int:
     from repro_torch.kernels.window_stats.ref import window_reductions_ref
     from repro_torch.kernels.placement_commit.ref import (
         sched_commit_fleet_ref)
-    from repro_torch.core.state import lane
+    from repro_torch.core import engine, prng
+    from repro_torch.core.events import stack_windows, window_to_torch
+    from repro_torch.core.precompile import precompile_stream, verify_stack
+    from repro_torch.core.snapshot import save_snapshot
+    from repro_torch.core.state import SimState, lane
+    from repro_torch.sched import PROPOSERS, base_pass, get_scheduler
     from repro_torch.launch import whatif
     from repro_torch.launch.simulate import summary_row
     from repro_torch.parsers import GCDParser, default_start_us
@@ -373,6 +403,7 @@ def main(argv=None) -> int:
                 "flash_attention": fa_ops.flash_attention_cuda,
                 "fused_ce": ce_ops.fused_ce_cuda}
     results = {name: {} for name in counters}
+    stoch_split = {}       # phase 6: windows/s and a window's device split
 
     def reset_counts():
         for fn in counters.values():
@@ -451,7 +482,7 @@ def main(argv=None) -> int:
     # later phases' inputs stay those of earlier versions of this script);
     # each lane against the plain version, and two calls bitwise equal
     def c_lane_inputs():
-        """C's B=8 inputs (made again for phase 8, so that they do not
+        """C's B=8 inputs (made again for phase 9, so that they do not
         count in the serving and training phases' peak memory)."""
         crng = np.random.default_rng(args.seed + 17)
         return (cuda(crng.integers(0, 3, (FLEET_B, T)).astype(np.int8)),
@@ -958,7 +989,243 @@ def main(argv=None) -> int:
               f"windows, dispatch {dispatch}): card == plain CPU path "
               "(state and decisions exact, stats rtol 1e-5)")
 
-    # ---- 6. the serving path: qwen3-4b at full width ------------------
+    # ---- 6. stochastic schedulers, snapshots and replay at cell A -----
+    # (a) the key stream on the card against the CPU, bitwise, at cell A's
+    # (P, N) and the GA population's (8, P, N); the two draw times
+    kcpu = prng.split(prng.key(args.seed + 5), 4)
+    kdev = prng.split(prng.key(args.seed + 5, dev), 4)
+    torch.cuda.synchronize()
+    assert torch.equal(kdev.cpu(), kcpu), "split on the card differs"
+    ga_shape = (GA_POP, P, N)
+    for label, draw in (
+            ("split x3", lambda k: prng.split(k, 3)),
+            (f"uniform ({P}, {N})", lambda k: prng.uniform(k[1], (P, N))),
+            (f"randint ({P}, {N}) in [0, {N})",
+             lambda k: prng.randint(k[2], 0, N, (P, N))),
+            (f"uniform {ga_shape}, a key a row",
+             lambda k: prng.uniform(prng.split(k[3], GA_POP), (P, N)))):
+        got, want = draw(kdev), draw(kcpu)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want), \
+            f"key draw {label}: card and CPU bits differ"
+        print(f"keys {label}: card == CPU, bitwise")
+        del got, want
+    draw_ms = {
+        "uniform_cell_a": time_ms(torch, lambda: prng.uniform(
+            kdev[1], (P, N)), 5),
+        "ga_generation_pair": time_ms(torch, lambda: (
+            prng.uniform(kdev[1], ga_shape),
+            prng.uniform(kdev[2], ga_shape)), 3)}
+    print(f"time key draws: one uniform ({P}, {N}) "
+          f"{draw_ms['uniform_cell_a']:.4f} ms, one GA generation's pair "
+          f"of uniform {ga_shape} {draw_ms['ga_generation_pair']:.4f} ms "
+          f"(plain PyTorch int64 threefry, {prng.CHUNK} positions a "
+          f"chunk) [{smi}]")
+
+    # (b) E at the searches' surrogate shapes, against its plain version:
+    # B=1 (SA, tabu) and B=GA_POP (the GA's population, a lane an
+    # individual), the inputs built as the surrogate builds them (one
+    # request and weight row expanded over the lanes); one launch a call;
+    # library yardstick index_add_
+    srng = np.random.default_rng(args.seed + 18)
+    s_req1 = cuda(grid(srng, 1, 48, (P, R)))
+    s_weight1 = cuda(srng.random(P) < 0.9)
+    surrogate = {}
+    for B in (1, GA_POP):
+        s_choice = cuda(srng.integers(0, N, (B, P)).astype(np.int32))
+        s_args = (s_choice, s_req1.expand(B, P, R),
+                  s_weight1.expand(B, P), N)
+        before = counters["segment_usage"].launches
+        got = su_ops.segment_usage_lanes(*s_args)
+        assert counters["segment_usage"].launches == before + 1, \
+            f"E at the surrogate's shape B={B}: not one launch"
+        want = segment_usage_lanes_ref(*s_args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"E at the surrogate's shape B={B}"
+        s_idx = (torch.where(s_args[2], s_choice.long(), N)
+                 + torch.arange(B, device=dev)[:, None] * (N + 1)
+                 ).reshape(-1)
+        s_src = s_args[1].reshape(B * P, R)
+        s_ms = time_ms(torch, lambda: su_ops.segment_usage_lanes(*s_args),
+                       20)
+        s_plain = time_ms(torch, lambda: segment_usage_lanes_ref(*s_args),
+                          10, warmup=1)
+        s_lib = time_ms(torch, lambda: torch.zeros(
+            B * (N + 1), R, device=dev).index_add_(0, s_idx, s_src), 20)
+        # the expanded rows are read once a lane, as the kernel reads them
+        s_bound, s_by = bound_ms(
+            nbytes(s_choice) + B * P * (R * 4 + 1) + B * N * R * 4,
+            int(s_args[2].sum()) * R)
+        surrogate[f"B{B}"] = dict(
+            B=B, T=P, V=R, N=N, ms=s_ms, plain_ms=s_plain,
+            library_ms=s_lib, bound_ms=s_bound, bound_by=s_by)
+        print(f"E segment_usage at the surrogate's shape B={B} T={P} "
+              f"V={R} N={N} (rows expanded over lanes): one launch, "
+              f"bitwise against the plain version; kernel {s_ms:.4f} ms, "
+              f"plain {s_plain:.4f} ms, library {s_lib:.4f} ms "
+              f"(index_add_), bound {s_bound:.3g} ms ({s_by}) [{smi}]")
+        del got, want, s_idx, s_src
+    results["segment_usage"]["surrogate"] = surrogate
+
+    # (c) the main path: Simulation with each stochastic scheduler, 8
+    # windows at cell A; counts reset just before each run, read after
+    stoch_ws = windows[:STOCH_WINDOWS]
+    launches_stoch, stoch_states = {}, {}
+    e_per_window = {"random": 0, "simulated_annealing": 65,
+                    "tabu_search": 49, "genetic": 5}
+    for name in STOCHASTIC:
+        reset_counts()
+        s = Simulation(cfg, iter(stoch_ws), scheduler=name,
+                       batch_windows=STOCH_BATCH, seed=args.seed,
+                       device=dev)
+        t0 = time.time()
+        st = s.run()
+        swall = time.time() - t0
+        got = {k: fn.launches for k, fn in counters.items()}
+        launches_stoch[name] = got
+        problems = validate_invariants(st, cfg)
+        assert not problems, (name, problems)
+        sf = s.stats_frame()
+        assert all(np.all(np.isfinite(v)) for v in sf.values()), name
+        print(f"main path {name}: {s.windows_done} windows in {swall:.3f}s "
+              f"-> {s.windows_done / swall:.2f} windows/s, placements "
+              f"{int(sf['placements'][-1])}, invariants: OK, launches "
+              f"{got}")
+        assert all(got[k] > 0 for k in MAIN_PATH[:3]), (name, got)
+        assert got["placement_commit"] == STOCH_WINDOWS, (name, got)
+        assert got["segment_usage"] == STOCH_WINDOWS * e_per_window[name], \
+            (name, got)
+        stoch_states[name] = st
+        # one traced window from this state: its device time, and the
+        # search's own (its proposal alone on the same pending batch)
+        lane_st = SimState(*[x.clone() for x in st])
+        key = engine.window_keys(args.seed, 1, dev)[0]
+        p_args = base_pass(st, cfg)        # idx, valid, ok, scores
+        propose = PROPOSERS[name]
+        propose(st, cfg, key, *p_args)                       # warm
+        w1 = window_to_torch(stack_windows(windows[STOCH_WINDOWS:
+                                                   STOCH_WINDOWS + 1]), dev)
+        engine.run_windows(SimState(*[x.clone() for x in st]), w1, cfg,
+                           get_scheduler(name), args.seed)     # warm
+        rows_w = profile_call(torch, lambda: engine.run_windows(
+            lane_st, w1, cfg, get_scheduler(name), args.seed),
+            f"{name}: one window", top=6)
+        rows_s = profile_call(torch, lambda: propose(st, cfg, key, *p_args),
+                              f"{name}: its search", top=4)
+        win_us = sum(r[0] for r in rows_w.values())
+        search_us = sum(r[0] for r in rows_s.values())
+        stoch_split[name] = dict(
+            windows_per_s=s.windows_done / swall,
+            window_device_ms=win_us / 1e3, search_device_ms=search_us / 1e3)
+        print(f"{name}: one window's device time {win_us / 1e3:.3f} ms, the "
+              f"search {search_us / 1e3:.3f} ms, the rest "
+              f"{(win_us - search_us) / 1e3:.3f} ms [{smi}]")
+        del s, lane_st, p_args
+
+    # (d) the fleet: one lane of each, switchless (their preferences reach
+    # kernel D as external rows); each lane against its scheduler's
+    # Simulation over the same windows and seed, bitwise
+    stoch_specs = [ScenarioSpec(name=n, scheduler=n) for n in STOCHASTIC]
+    reset_counts()
+    sfleet = ScenarioFleet(fcfg, iter(fleet_ws[:STOCH_WINDOWS]),
+                           stoch_specs, batch_windows=STOCH_BATCH,
+                           seed=args.seed, device=dev)
+    t0 = time.time()
+    sfstate = sfleet.run()
+    sfwall = time.time() - t0
+    launches_sfleet = {k: fn.launches for k, fn in counters.items()}
+    assert sfleet.dispatch_table.switchless
+    assert launches_sfleet["sched_commit"] == STOCH_WINDOWS, launches_sfleet
+    assert launches_sfleet["placement_commit"] == 0, launches_sfleet
+    assert launches_sfleet["segment_usage"] == STOCH_WINDOWS * sum(
+        e_per_window.values()), launches_sfleet
+    assert all(launches_sfleet[k] > 0 for k in FLEET_PATH), launches_sfleet
+    sfsf = sfleet.stats_frame()
+    print(f"stochastic fleet: {len(stoch_specs)} lanes x {STOCH_WINDOWS} "
+          f"windows in {sfwall:.3f}s -> {STOCH_WINDOWS / sfwall:.2f} "
+          f"windows/s, launches {launches_sfleet} [{smi}]")
+    for b, name in enumerate(STOCHASTIC):
+        problems = validate_invariants(lane(sfstate, b), fcfg)
+        assert not problems, (name, problems)
+        s = Simulation(fcfg, iter(fleet_ws[:STOCH_WINDOWS]), scheduler=name,
+                       batch_windows=STOCH_BATCH, seed=args.seed,
+                       device=dev)
+        st = s.run()
+        for f in st._fields:
+            assert torch.equal(getattr(sfstate, f)[b], getattr(st, f)), \
+                f"fleet lane {b} ({name}) {f} differs from Simulation"
+        for k, v in s.stats_frame().items():
+            assert np.array_equal(sfsf[k][:, b], v), (name, k)
+        print(f"  lane {b} {name:<20} invariants: OK, == Simulation "
+              "(state and stats bitwise)")
+        del s, st
+
+    # (e) snapshots: simulated_annealing paused at window 4, saved,
+    # restored, run to window 8 == the straight run to window 8
+    half = STOCH_WINDOWS // 2
+    with tempfile.TemporaryDirectory() as d:
+        snap = str(Path(d) / "sa.npz")
+        s1 = Simulation(cfg, iter(stoch_ws), scheduler="simulated_annealing",
+                        batch_windows=STOCH_BATCH, seed=args.seed,
+                        device=dev)
+        s1.run(max_windows=half)
+        assert s1.windows_done == half
+        save_snapshot(snap, s1.state, cfg, s1.windows_done)
+        snap_mb = Path(snap).stat().st_size / 2 ** 20
+        del s1
+        s2 = Simulation(cfg, iter(stoch_ws[half:]),
+                        scheduler="simulated_annealing",
+                        batch_windows=STOCH_BATCH, seed=args.seed,
+                        device=dev)
+        s2.restore(snap)
+        assert s2.windows_done == half
+        st = s2.run()
+        straight = stoch_states["simulated_annealing"]
+        for f in st._fields:
+            assert torch.equal(getattr(st, f), getattr(straight, f)), \
+                f"resumed simulated_annealing: {f} differs"
+        print(f"snapshot: simulated_annealing paused at window {half} "
+              f"({snap_mb:.1f} MiB npz), restored on the card, run to "
+              f"window {STOCH_WINDOWS}: every state field == the straight "
+              "run")
+        del s2, st
+
+        # (f) replay: the fleet's 8 windows pre-compiled; a fleet fed from
+        # window 4 of the stack and restored from its snapshot there ==
+        # the uninterrupted fleet (state and trailing stats rows)
+        stack = str(Path(d) / "stack.npz")
+        precompile_stream(fcfg, iter(fleet_ws[:STOCH_WINDOWS]), stack,
+                          STOCH_WINDOWS, shard_windows=half)
+        verify_stack(stack)
+        kw = dict(batch_windows=STOCH_BATCH, seed=args.seed, device=dev)
+        f1 = ScenarioFleet.from_precompiled(fcfg, stack, stoch_specs,
+                                            n_windows=half, **kw)
+        f1.run()
+        fsnap = str(Path(d) / "fleet.npz")
+        f1.save(fsnap)
+        del f1
+        f2 = ScenarioFleet.from_precompiled(fcfg, stack, stoch_specs,
+                                            start_window=half, **kw)
+        f2.restore(fsnap)
+        f2.run()
+        assert f2.windows_done == STOCH_WINDOWS
+        for f in sfstate._fields:
+            assert torch.equal(getattr(f2.state, f), getattr(sfstate, f)), \
+                f"replayed fleet: {f} differs"
+        f2sf = f2.stats_frame()
+        for k in sfsf:
+            assert np.array_equal(f2sf[k], sfsf[k][half:]), k
+        print(f"replay: {STOCH_WINDOWS} cell-A windows pre-compiled "
+              f"({Path(stack).stat().st_size / 2 ** 20:.1f} MiB, chunks of "
+              f"{half}); a fleet from_precompiled(start_window={half}) "
+              "restored from its snapshot == the uninterrupted fleet "
+              "(every state field, trailing stats rows)")
+        del f2
+    del sfleet, sfstate, stoch_states, straight, s_args, s_choice, s_req1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 7. the serving path: qwen3-4b at full width ------------------
     serve_cfg = dataclasses.replace(scfg, attention_impl="pallas")
     t0 = time.time()
     params = lm.init_params(serve_cfg,
@@ -1083,7 +1350,7 @@ def main(argv=None) -> int:
     assert max(rel32) < 2e-2, rel32
     del params, rows, logits_k, logits_x, leaves
 
-    # ---- 7. the training path: qwen3-4b at full width -----------------
+    # ---- 8. the training path: qwen3-4b at full width -----------------
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1212,7 +1479,7 @@ def main(argv=None) -> int:
     assert crash_rep["recoveries"] == [4] and crash_rep["final_step"] == 8
     assert len(crash_rep["losses"]) == 8 and diff <= 1e-5, diff
 
-    # ---- 8. times at the main path's shapes ---------------------------
+    # ---- 9. times at the main path's shapes ---------------------------
     W = args.windows
     # D at the fleet's shapes and lane layout: the bytes each lane must
     # read once (ok; scores only for static score-family lanes; ext rows of
@@ -1407,7 +1674,7 @@ def main(argv=None) -> int:
           f"{b_ms:.4f} ms ({b_by}) [{smi}]")
     del cx, cw, clab, clab_l
 
-    # ---- 9. the kernel table ------------------------------------------
+    # ---- 10. the kernel table ------------------------------------------
     meta = {
         "constraint_match": ("src/repro/kernels/constraint_match/kernel.py:76",),
         "placement_commit": ("src/repro/kernels/placement_commit/kernel.py:121",),
@@ -1425,22 +1692,29 @@ def main(argv=None) -> int:
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": meta[name][0],
             "launches": (launches[name] + launches_fleet[name]
-                         + launches_serve[name] + launches_train[name]),
+                         + launches_serve[name] + launches_train[name]
+                         + sum(v[name] for v in launches_stoch.values())
+                         + launches_sfleet[name]),
             "launches_by_path": {"simulate": launches[name],
                                  "fleet": launches_fleet[name],
+                                 **{f"simulate_{k}": v[name]
+                                    for k, v in launches_stoch.items()},
+                                 "fleet_stochastic": launches_sfleet[name],
                                  "serve": launches_serve[name],
                                  "train": launches_train[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **({k: r[k] for k in ("fleet", "forms", "parent_split")
-                if k in r}),
+            **({k: r[k] for k in ("fleet", "forms", "parent_split",
+                                  "surrogate") if k in r}),
             **({k: r[k] for k in ("cluster", "latency_floor_ms") if k in r}),
             **({"body": G_TC_BODY, "launches_tc": g_tc}
                if name == "fused_ce" else {}),
             **({"body": fa_ops.TC_BODY, "launches_tc": f_tc}
                if name == "flash_attention" else {})})
     print("kernels: " + " ".join(f"{t['name']}=ok(cuda)" for t in table))
+    print("stochastic schedulers at cell A: " + json.dumps(
+        {"key_draw_ms": draw_ms, "by_scheduler": stoch_split}))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

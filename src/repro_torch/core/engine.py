@@ -45,6 +45,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.config import SimConfig
+from repro_torch.core import prng
 from repro_torch.core import stats as stats_mod
 from repro_torch.core.events import (REMOVE_REASON_EVICT, EventKind,
                                      EventWindow)
@@ -270,6 +271,13 @@ def scan_strided(chunk: Callable, state, windows: EventWindow, W: int,
     return state, _stack_rows(rows)
 
 
+def window_keys(seed: int, W: int, device) -> torch.Tensor:
+    """The scheduler keys of a batch of W windows: ``split(key(seed), W)``
+    (the reference's ``jax.random.split(jax.random.PRNGKey(seed), W)``),
+    (W, 2) int64 on ``device``."""
+    return prng.split(prng.key(seed, device), W)
+
+
 def run_windows(state: SimState, windows: EventWindow, cfg: SimConfig,
                 scheduler_fn: Callable, seed: int = 0
                 ) -> Tuple[SimState, Stats]:
@@ -280,8 +288,9 @@ def run_windows(state: SimState, windows: EventWindow, cfg: SimConfig,
     ``cfg.stats_stride == k > 1`` one stats row is emitted per k windows —
     row j is computed on the state after window (j+1)*k — and a
     non-divisible tail emits one final partial row, so the last row always
-    reflects the final state. ``seed`` is kept for the RNG schedulers of a
-    later slice; the deterministic schedulers ignore it.
+    reflects the final state. Window j's scheduler key is row j of
+    :func:`window_keys` (``seed``, W), as the reference derives it, so the
+    final state is bitwise independent of the stride.
     """
     advance = make_window_advance(cfg, scheduler_fn)
     W = windows.kind.shape[0]
@@ -289,10 +298,11 @@ def run_windows(state: SimState, windows: EventWindow, cfg: SimConfig,
     if W == 0:
         return state, {k: v[:0] for k, v in
                        stats_mod.window_stats(lanes, cfg).items()}
+    keys = iter(window_keys(seed, W, state.window.device))  # window order
 
     def chunk(s, ws):
         for j in range(ws.kind.shape[0]):
-            s = advance(s, lift(window_at(ws, j)), None)
+            s = advance(s, lift(window_at(ws, j)), next(keys))
         return s, stats_mod.window_stats(s, cfg)
 
     lanes, rows = scan_strided(chunk, lanes, windows, W, cfg.stats_stride)

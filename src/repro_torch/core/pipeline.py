@@ -30,6 +30,7 @@ import torch
 from repro_torch.config import SimConfig
 from repro_torch.core import engine as engine_mod
 from repro_torch.core.events import EventWindow, stack_windows
+from repro_torch.core.snapshot import load_snapshot
 from repro_torch.core.state import SimState, drop, init_state, lift
 from repro_torch.device import resolve_device
 from repro_torch.sched import get_scheduler
@@ -70,8 +71,10 @@ class _StagingRing:
 class WindowPrefetcher:
     """Bounded-buffer producer/consumer over packed EventWindows.
 
-    The source yields single numpy windows, staged here into batches of
-    ``batch_windows``; the consumer dequeues device-resident batches.
+    The source may yield single numpy windows (staged here into batches of
+    ``batch_windows``) or pre-stacked (W, ...) batches — e.g. straight from
+    ``core.precompile.replay_windows`` — which skip the staging ring; the
+    consumer dequeues device-resident batches.
     """
 
     def __init__(self, cfg: SimConfig, window_iter: Iterator[EventWindow],
@@ -108,19 +111,27 @@ class WindowPrefetcher:
         batch: List[EventWindow] = []
         ring: Optional[_StagingRing] = None
 
+        def put_stacked(stacked: EventWindow):
+            self._put(EventWindow(*[torch.from_numpy(np.ascontiguousarray(f))
+                                    for f in stacked]))
+
         def flush():
             if len(batch) == self.batch:
                 host, slot = ring.stage(batch)
                 self._put(host, ring, slot)
             else:                         # short tail batch
-                self._put(EventWindow(*[torch.from_numpy(
-                    np.ascontiguousarray(f)) for f in stack_windows(batch)]))
+                put_stacked(stack_windows(batch))
             batch.clear()
 
         try:
             if self._cuda:
                 torch.cuda.set_device(self.device)
             for w in self._src:
+                if np.ndim(w.kind) == 2:      # pre-stacked (W, E) batch
+                    if batch:                 # keep arrival order
+                        flush()
+                    put_stacked(w)
+                    continue
                 if ring is None:
                     ring = _StagingRing(w, self.batch, pin=self._cuda)
                 batch.append(w)
@@ -205,7 +216,9 @@ class WindowedDriver:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
-    def run(self) -> SimState:
+    def run(self, max_windows: Optional[int] = None) -> SimState:
+        """Drive the source to its end, or until ``windows_done`` reaches
+        ``max_windows`` (checked after each batch, as the reference does)."""
         t_start = time.time()
         resync_every = (self.cfg.resync_windows
                         if self.cfg.incremental_accounting else 0)
@@ -237,9 +250,43 @@ class WindowedDriver:
                        - (time.time() - t_start))
                 if lag > 0:
                     time.sleep(lag)
+            if max_windows is not None and self.windows_done >= max_windows:
+                break
         self._synchronize()
         self._inflight.clear()
         return self.state
+
+    def _check_restorable(self, state: SimState):
+        """Refuse a snapshot whose state does not fit this driver (subclass
+        hook; a single trajectory takes one with the same field shapes)."""
+        for f in state._fields:
+            have, got = getattr(self.state, f).shape, getattr(state, f).shape
+            if have != got:
+                raise ValueError(f"snapshot field {f} has shape "
+                                 f"{tuple(got)}, this driver {tuple(have)}")
+
+    def restore(self, path: str):
+        """Resume mid-trace from a snapshot (of either package), onto this
+        driver's device.
+
+        Feed the driver a window source that starts at the snapshot's
+        window and keep its ``seed``: each batch's keys derive from ``seed
+        + windows_done``, the seed the uninterrupted run gave that batch,
+        and the resync cadence is re-phased to the from-zero schedule
+        (:func:`restored_resync_phase`), so the resumed run is bitwise the
+        uninterrupted one, stochastic schedulers included.
+        """
+        state, cfg, windows_done, _extra = load_snapshot(path,
+                                                         device=self.device)
+        self._check_restorable(state)
+        if cfg != self.cfg:
+            raise ValueError(f"snapshot config differs from "
+                             f"{type(self).__name__} config")
+        self.state = state
+        self.windows_done = windows_done
+        self._since_resync = restored_resync_phase(
+            windows_done, self.prefetcher.batch,
+            self.cfg.resync_windows if self.cfg.incremental_accounting else 0)
 
     def stats_window_indices(self) -> np.ndarray:
         """The cumulative window count each stats row was emitted at."""
@@ -269,7 +316,10 @@ class WindowedDriver:
 
 class Simulation(WindowedDriver):
     """End-to-end driver: trace source -> prefetcher -> engine, on the card
-    unless ``device="cpu"`` is passed."""
+    unless ``device="cpu"`` is passed.
+
+    Resumes from a snapshot (``core.snapshot``) with :meth:`restore`.
+    """
 
     def __init__(self, cfg: SimConfig, window_source: Iterator[EventWindow],
                  scheduler: Optional[str] = None, batch_windows: int = 32,

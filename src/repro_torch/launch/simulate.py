@@ -8,6 +8,10 @@
   PYTHONPATH=src python -m repro_torch.launch.simulate --nodes 32 \
       --jobs 40 --windows 30 --device cpu
 
+  # §V-A pre-compiled replay, a stochastic scheduler, a snapshot at the end:
+  ... --scheduler simulated_annealing --precompile /tmp/events.npz \
+      --snapshot /tmp/sim.npz
+
 Prints the same stats JSON and ``invariants: OK`` as the reference's CLI.
 """
 from __future__ import annotations
@@ -20,13 +24,13 @@ import time
 
 from repro_torch.config import REDUCED_SIM, SimConfig
 from repro_torch.configs import get_sim_config
+from repro_torch.core import precompile as precompile_mod
 from repro_torch.core import tracegen
 from repro_torch.core.pipeline import Simulation
+from repro_torch.core.snapshot import save_snapshot
 from repro_torch.core.state import validate_invariants
 from repro_torch.device import resolve_device
 from repro_torch import parsers as trace_parsers
-
-LATER = "waits for a later slice of the port"
 
 
 def build_cfg(args) -> SimConfig:
@@ -56,7 +60,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--trace-dir", default=None)
     ap.add_argument("--trace-family", default="gcd",
-                    help="trace parser family (see --list-families)")
+                    help="trace parser family (see --list-families); "
+                         "synthetic traces are generated in this schema too")
     ap.add_argument("--list-families", action="store_true",
                     help="print the trace-parser registry and exit")
     ap.add_argument("--cell-a", action="store_true",
@@ -75,8 +80,10 @@ def main(argv=None):
                          "always runs the CUDA kernels on the card")
     ap.add_argument("--stats-stride", type=int, default=1,
                     help="emit a stats row every k-th window")
-    ap.add_argument("--precompile", default=None, help=f"({LATER})")
-    ap.add_argument("--snapshot", default=None, help=f"({LATER})")
+    ap.add_argument("--precompile", default=None,
+                    help="path: pre-compile events to npz then replay (§V-A)")
+    ap.add_argument("--snapshot", default=None,
+                    help="write a pausable snapshot here at the end")
     ap.add_argument("--batch-windows", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
@@ -90,13 +97,7 @@ def main(argv=None):
     if args.list_families:
         print(trace_parsers.describe_parsers())
         raise SystemExit(0)
-    for flag, val in (("--precompile", args.precompile),
-                      ("--snapshot", args.snapshot)):
-        if val:
-            ap.error(f"{flag} {LATER}")
     family = args.trace_family
-    if family == "openb":
-        ap.error(f"--trace-family openb {LATER}")
     parser_cls = trace_parsers.get_parser(family)      # fail fast on typos
     device = resolve_device(args.device)
 
@@ -107,16 +108,37 @@ def main(argv=None):
         tmp = tempfile.TemporaryDirectory()
         trace_dir = tmp.name
         t0 = time.time()
-        summary = tracegen.generate_trace(
-            trace_dir, n_machines=cfg.max_nodes, n_jobs=args.jobs,
-            horizon_windows=args.windows, seed=args.seed,
-            usage_period_us=max(cfg.window_us * 4, 20_000_000))
+        if family == "openb":
+            from repro_torch.parsers.alibaba_openb import generate_openb_trace
+            summary = generate_openb_trace(
+                trace_dir, n_nodes=cfg.max_nodes, n_pods=args.jobs * 4,
+                horizon_s=int(args.windows * cfg.window_us / 1e6),
+                seed=args.seed)
+        else:
+            summary = tracegen.generate_trace(
+                trace_dir, n_machines=cfg.max_nodes, n_jobs=args.jobs,
+                horizon_windows=args.windows, seed=args.seed,
+                usage_period_us=max(cfg.window_us * 4, 20_000_000))
         print(f"generated {family}-schema trace: {summary} "
               f"({time.time()-t0:.1f}s)")
 
     start_us = trace_parsers.default_start_us(family, cfg)
-    parser = parser_cls(cfg, trace_dir)
-    source = parser.packed_windows(args.windows, start_us=start_us)
+    t0 = time.time()
+    if args.precompile:
+        n = precompile_mod.precompile_trace(cfg, trace_dir, args.precompile,
+                                            args.windows, start_us=start_us,
+                                            family=family)
+        print(f"pre-compiled {n} windows -> {args.precompile} "
+              f"({time.time()-t0:.1f}s)")
+        warn = precompile_mod.overflow_warning(
+            precompile_mod.stack_parse_stats(args.precompile))
+        if warn:
+            print(warn)
+        source = precompile_mod.replay_single_windows(args.precompile)
+        parser = None
+    else:
+        parser = parser_cls(cfg, trace_dir)
+        source = parser.packed_windows(args.windows, start_us=start_us)
 
     sim = Simulation(cfg, source, scheduler=args.scheduler,
                      batch_windows=args.batch_windows, seed=args.seed,
@@ -132,10 +154,14 @@ def main(argv=None):
     print(json.dumps(summary_row(args.scheduler, sf), indent=1))
     problems = validate_invariants(state, cfg)
     print("invariants:", problems or "OK")
-    print("parser:", parser.stats)
-    warn = trace_parsers.overflow_warning(parser.stats)
-    if warn:
-        print(warn)
+    if parser is not None:
+        print("parser:", parser.stats)
+        warn = precompile_mod.overflow_warning(parser.stats)
+        if warn:
+            print(warn)
+    if args.snapshot:
+        save_snapshot(args.snapshot, state, cfg, sim.windows_done)
+        print(f"snapshot -> {args.snapshot}")
     if tmp:
         tmp.cleanup()
     return sf

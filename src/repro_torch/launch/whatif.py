@@ -12,11 +12,21 @@ port.
       --windows 32 --schedulers greedy,first_fit,round_robin \
       --arrival 1.0,1.5
 
+  # pre-compile the trace once (reserving injection headroom so later
+  # replays can amplify), then replay sweeps with zero parsing — in replay
+  # mode the window geometry comes from the stack, not from flags:
+  PYTHONPATH=src python -m repro_torch.launch.whatif --trace-dir /data/gcd \
+      --windows 500 --precompile /tmp/gcd.npz --inject-slots 64 \
+      --schedulers greedy,simulated_annealing --capacity 1.0,0.8
+  PYTHONPATH=src python -m repro_torch.launch.whatif --replay /tmp/gcd.npz \
+      --windows 500 --arrival 1.0,1.5,2.0
+
 Sweep axes multiply (cartesian grid). Every scenario sees the same parsed
 event stream; divergence is injected on the device
 (repro_torch/scenarios/perturb.py). Prints the reference CLI's comparison
-table. ``--mesh``, ``--precompile``, ``--replay``, ``--snapshot`` and
-``--serve`` wait for later slices of the port and exit with a message.
+table. ``--mesh`` (the mesh-sharded fleet) and ``--serve`` (the what-if
+service) wait for their slices of the port (ROADMAP Queue 1) and exit with
+a message.
 """
 from __future__ import annotations
 
@@ -29,12 +39,16 @@ import time
 from repro_torch.config import REDUCED_SIM, SimConfig
 from repro_torch.configs import get_sim_config
 from repro_torch.core import tracegen
+from repro_torch.core.precompile import (overflow_warning, precompile_trace,
+                                         stack_parse_stats)
 from repro_torch.device import resolve_device
 from repro_torch import parsers as trace_parsers
 from repro_torch.scenarios import ScenarioFleet, expand_grid, format_table
 from repro_torch.scenarios.report import to_json
 
 LATER = "waits for a later slice of the port"
+MESH_LATER = f"(the mesh-sharded fleet) {LATER}"
+SERVE_LATER = f"(the what-if service) {LATER}"
 
 
 def _floats(s: str):
@@ -91,11 +105,12 @@ def build_specs(args):
 def main(argv=None):
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     if "--serve" in argv:
-        raise SystemExit(f"whatif: --serve (the what-if service) {LATER}")
+        raise SystemExit(f"whatif: --serve {SERVE_LATER}")
     ap = argparse.ArgumentParser(
         description="batched what-if scenario fleet over one trace")
     ap.add_argument("--trace-dir", default=None,
-                    help="GCD-schema trace dir (default: synthesise one)")
+                    help="trace dir in --trace-family's schema "
+                         "(default: synthesise one)")
     ap.add_argument("--trace-family", default="gcd",
                     help="trace parser family (see --list-families)")
     ap.add_argument("--list-families", action="store_true",
@@ -137,11 +152,22 @@ def main(argv=None):
                          "picks switchless when every lane's scheduler has "
                          "a table form, switch forces the per-lane proposal "
                          "path, table demands switchless")
+    ap.add_argument("--mesh", default=None, help=f"{MESH_LATER}")
+    ap.add_argument("--precompile", default=None,
+                    help="pre-compile the trace to this npz (§V-A), then "
+                         "replay the sweep from it")
+    ap.add_argument("--replay", default=None,
+                    help="feed the fleet from an existing pre-compiled npz "
+                         "(zero parsing; overrides --trace-dir)")
+    ap.add_argument("--start-window", type=int, default=0,
+                    help="with --replay: skip into the stack and simulate "
+                         "from this window (chunked stacks only decompress "
+                         "the covered range)")
     ap.add_argument("--json", default=None, help="write full report here")
+    ap.add_argument("--snapshot", default=None,
+                    help="write a batched fleet snapshot here at the end")
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="default: the CUDA card (raises if there is none)")
-    for flag in ("--mesh", "--precompile", "--replay", "--snapshot"):
-        ap.add_argument(flag, default=None, help=f"({LATER})")
     args = ap.parse_args(argv)
 
     if args.list_schedulers:
@@ -151,16 +177,21 @@ def main(argv=None):
     if args.list_families:
         print(trace_parsers.describe_parsers())
         raise SystemExit(0)
-    for flag in ("mesh", "precompile", "replay", "snapshot"):
-        if getattr(args, flag):
-            ap.error(f"--{flag} {LATER}")
+    if args.mesh:
+        ap.error(f"--mesh {MESH_LATER}")
     family = args.trace_family
-    if family == "openb":
-        ap.error(f"--trace-family openb {LATER}")
     parser_cls = trace_parsers.get_parser(family)      # fail fast on typos
     device = resolve_device(args.device)
 
     cfg = build_cfg(args)
+    if args.replay:
+        # replay can't re-shape persisted tensors: the stack's embedded
+        # window geometry (incl. the injection slot pool) wins over flags
+        from repro_torch.core.precompile import replay_config
+        cfg = replay_config(args.replay, cfg)
+        print(f"replaying {args.replay}: window geometry from the stack "
+              f"(E={cfg.max_events_per_window}, "
+              f"inject_slots={cfg.inject_slots})")
     specs = build_specs(args)
     print(f"{len(specs)} scenarios "
           f"({len(args.schedulers.split(','))} schedulers):")
@@ -169,40 +200,77 @@ def main(argv=None):
 
     tmp = None
     trace_dir = args.trace_dir
-    if trace_dir is None:
+    if trace_dir is None and args.replay is None:
         tmp = tempfile.TemporaryDirectory()
         trace_dir = tmp.name
         t0 = time.time()
-        summary = tracegen.generate_trace(
-            trace_dir, n_machines=cfg.max_nodes, n_jobs=args.jobs,
-            horizon_windows=args.windows, seed=args.seed,
-            usage_period_us=max(cfg.window_us * 4, 20_000_000))
+        if family == "openb":
+            from repro_torch.parsers.alibaba_openb import generate_openb_trace
+            summary = generate_openb_trace(
+                trace_dir, n_nodes=cfg.max_nodes, n_pods=args.jobs * 4,
+                horizon_s=int(args.windows * cfg.window_us / 1e6),
+                seed=args.seed)
+        else:
+            summary = tracegen.generate_trace(
+                trace_dir, n_machines=cfg.max_nodes, n_jobs=args.jobs,
+                horizon_windows=args.windows, seed=args.seed,
+                usage_period_us=max(cfg.window_us * 4, 20_000_000))
         print(f"generated {family}-schema trace: {summary} "
               f"({time.time()-t0:.1f}s)")
 
     start = trace_parsers.default_start_us(family, cfg)
-    parser = parser_cls(cfg, trace_dir)
-    fleet = ScenarioFleet(cfg, parser.packed_windows(args.windows,
-                                                     start_us=start),
-                          specs, batch_windows=args.batch_windows,
-                          seed=args.seed, device=device)
+    replay_path = args.replay
+    if args.precompile and replay_path is None:
+        t0 = time.time()
+        n = precompile_trace(cfg, trace_dir, args.precompile, args.windows,
+                             start_us=start, family=family)
+        print(f"pre-compiled {n} windows -> {args.precompile} "
+              f"({time.time()-t0:.1f}s)")
+        warn = overflow_warning(stack_parse_stats(args.precompile))
+        if warn:
+            print(warn)
+        replay_path = args.precompile
+
+    if replay_path is not None:
+        if args.start_window:
+            from repro_torch.core.precompile import stack_n_windows
+            n_stack = stack_n_windows(replay_path)
+            if args.start_window < 0 or args.start_window >= n_stack:
+                ap.error(f"--start-window {args.start_window} is outside "
+                         f"the stack's [0, {n_stack})")
+        fleet = ScenarioFleet.from_precompiled(
+            cfg, replay_path, specs, batch_windows=args.batch_windows,
+            seed=args.seed, n_windows=args.windows,
+            start_window=args.start_window, device=device)
+    else:
+        if args.start_window:
+            ap.error("--start-window needs --replay (a chunked stack)")
+        parser = parser_cls(cfg, trace_dir)
+        source = parser.packed_windows(args.windows, start_us=start)
+        fleet = ScenarioFleet(cfg, source, specs,
+                              batch_windows=args.batch_windows,
+                              seed=args.seed, device=device)
     t0 = time.time()
     fleet.run()
     wall = time.time() - t0
-    warn = trace_parsers.overflow_warning(parser.stats)
-    if warn:
-        print(warn)
+    if replay_path is None:
+        warn = overflow_warning(parser.stats)
+        if warn:
+            print(warn)
     sim_s = fleet.windows_done * cfg.window_us / 1e6
     print(f"simulated {fleet.windows_done} windows x {fleet.n_scenarios} "
           f"scenarios ({sim_s:.0f} sim-s each) in {wall:.2f}s wall on "
           f"{device} -> {sim_s * fleet.n_scenarios / wall:.1f}x aggregate "
-          "speed factor, one parse")
+          f"speed factor, {'zero parses' if replay_path else 'one parse'}")
 
     report = fleet.report(baseline=args.baseline)
     print(format_table(report))
     if args.json:
         to_json(report, args.json)
         print(f"report -> {args.json}")
+    if args.snapshot:
+        fleet.save(args.snapshot)
+        print(f"fleet snapshot -> {args.snapshot}")
     if tmp:
         tmp.cleanup()
     return report

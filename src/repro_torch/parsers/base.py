@@ -241,18 +241,3 @@ def describe_parsers() -> str:
         lines.append(f"  {name:10s} {doc}")
     return "\n".join(lines)
 
-
-def overflow_warning(stats: ParseStats) -> Optional[str]:
-    """A human warning when the parse dropped data, else None."""
-    slot, attr = stats.slot_overflow, stats.attr_overflow
-    if not slot and not attr:
-        return None
-    parts = []
-    if slot:
-        parts.append(f"{slot} task/node rows dropped (slot_overflow) — "
-                     "results are missing load; raise max_tasks/max_nodes")
-    if attr:
-        parts.append(f"{attr} attribute names hashed into shared columns "
-                     "(attr_overflow) — constraints may alias; raise "
-                     "n_attr_slots")
-    return "WARNING: " + "; ".join(parts)

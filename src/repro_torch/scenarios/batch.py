@@ -132,7 +132,8 @@ def make_scenario_advance(cfg: SimConfig, scheduler_names: Tuple[str, ...],
                           lane_scheds: Tuple[int, ...] = (),
                           switchless: bool = False):
     """The stats-free transition of every lane:
-    ``advance(state_B, w, knobs) -> (state_B, injected (B,) i32)``; the
+    ``advance(state_B, w, knobs, rng) -> (state_B, injected (B,) i32)``,
+    ``rng`` the window's scheduler key, shared by every lane; the
     per-window injected count rides along so strided stats rows can sum
     it. ``lane_scheds`` is the static per-lane scheduler index into
     ``scheduler_names``; ``switchless`` picks the fused dispatch."""
@@ -142,10 +143,10 @@ def make_scenario_advance(cfg: SimConfig, scheduler_names: Tuple[str, ...],
     make = make_switchless_dispatch if switchless else make_switch_dispatch
     dispatch = make(cfg, table, tuple(lane_scheds))
 
-    def advance(state: SimState, w: EventWindow, knobs: ScenarioKnobs
-                ) -> Tuple[SimState, torch.Tensor]:
+    def advance(state: SimState, w: EventWindow, knobs: ScenarioKnobs,
+                rng=None) -> Tuple[SimState, torch.Tensor]:
         state, injected = prelude(state, w, knobs)
-        state = dispatch(state)
+        state = dispatch(state, rng)
         if not cfg.incremental_accounting:
             state = eng.recompute_accounting(state, cfg)
         return state._replace(window=state.window + 1), injected
@@ -171,7 +172,9 @@ def run_scenarios(state: SimState, windows: EventWindow, knobs: ScenarioKnobs,
     indices, which must agree with ``knobs.sched_idx``) and a fully
     table-formed snapshot, the switchless path; otherwise the switch
     fallback (which reads ``knobs.sched_idx`` once when ``lane_scheds`` is
-    not given). ``seed`` is kept for the RNG schedulers of a later slice.
+    not given). The window keys are ``engine.window_keys(seed, W)``, as in
+    ``engine.run_windows``, and every lane of a window gets its row (common
+    random numbers, the reference's rule for paired what-if comparisons).
 
     With ``cfg.stats_stride == k > 1`` one (B, ...) row is emitted per k
     windows, the tail as one final partial row, ``injected_arrivals``
@@ -194,11 +197,12 @@ def run_scenarios(state: SimState, windows: EventWindow, knobs: ScenarioKnobs,
     if W == 0:
         return state, {k: v[None][:0] for k, v in
                        rows_for(state, torch.zeros_like(state.window)).items()}
+    keys = iter(eng.window_keys(seed, W, state.window.device))
 
     def chunk(s, ws):
         acc = torch.zeros_like(s.window)
         for j in range(ws.kind.shape[0]):
-            s, injected = advance(s, eng.window_at(ws, j), knobs)
+            s, injected = advance(s, eng.window_at(ws, j), knobs, next(keys))
             acc = acc + injected
         return s, rows_for(s, acc)
 

@@ -12,17 +12,21 @@ summed across each chunk; ``stats_window_indices()`` maps each row back to
 its window. Mean columns of the report then average the decimated sample,
 so compare sweeps at equal strides.
 
-Not ported yet: the mesh-sharded fleet (``mesh=``), feeding the fleet from
-a pre-compiled npz (``from_precompiled``) and fleet snapshots (``save`` /
-``restore``); each raises and names the slice it waits for.
+A fleet can be fed straight from a pre-compiled npz (:meth:`from_precompiled`,
+``core/precompile.py``: zero parsing) and paused, saved and restored
+mid-trace (:meth:`save` / ``restore``, ``core/snapshot.py``; the
+resumed run is bitwise the uninterrupted one). Not ported
+yet: the mesh-sharded fleet (``mesh=``), which raises and names its slice.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Iterator, List, Optional, Sequence
 
 from repro_torch.config import SimConfig
 from repro_torch.core.events import EventWindow
 from repro_torch.core.pipeline import WindowedDriver
+from repro_torch.core.snapshot import save_snapshot
 from repro_torch.scenarios import batch as batch_mod
 from repro_torch.scenarios.report import scenario_report
 from repro_torch.scenarios.spec import ScenarioSpec, build_knobs
@@ -30,9 +34,6 @@ from repro_torch.sched import snapshot_dispatch
 
 MESH_LATER = ("the mesh-sharded fleet waits for a later slice of the port "
               "(lanes split across cards with torch.distributed)")
-SNAPSHOT_LATER = ("fleet snapshots and pre-compiled replay wait for the "
-                  "port of core/snapshot.py and core/precompile.py, a later "
-                  "slice")
 
 
 class ScenarioFleet(WindowedDriver):
@@ -74,8 +75,31 @@ class ScenarioFleet(WindowedDriver):
                                                   self.device)
 
     @classmethod
-    def from_precompiled(cls, *args, **kwargs) -> "ScenarioFleet":
-        raise NotImplementedError(SNAPSHOT_LATER)
+    def from_precompiled(cls, cfg: SimConfig, path: str,
+                         specs: Sequence[ScenarioSpec],
+                         batch_windows: int = 32, seed: Optional[int] = None,
+                         mesh=None, n_windows: Optional[int] = None,
+                         start_window: int = 0,
+                         device=None) -> "ScenarioFleet":
+        """A fleet fed straight from a pre-compiled npz (zero parsing).
+
+        The npz must have been written by ``precompile_trace`` (of either
+        package) under a shape-compatible config (same window geometry and
+        slot-pool reservation) — validated against the npz's embedded
+        metadata. ``n_windows`` truncates the replay; ``start_window`` skips
+        into the stack (chunked stacks only decompress the covered range) —
+        pair it with :meth:`restore` of a snapshot taken at that window to
+        resume a fleet mid-trace.
+        """
+        from repro_torch.core.precompile import (replay_windows,
+                                                 validate_replay)
+        validate_replay(path, cfg)
+        return cls(cfg,
+                   replay_windows(path, batch=batch_windows,
+                                  n_windows=n_windows,
+                                  start_window=start_window),
+                   specs, batch_windows=batch_windows, seed=seed, mesh=mesh,
+                   device=device)
 
     @property
     def n_scenarios(self) -> int:
@@ -100,8 +124,20 @@ class ScenarioFleet(WindowedDriver):
                                [s.scheduler for s in self.specs],
                                baseline=baseline)
 
-    def save(self, path: str):
-        raise NotImplementedError(SNAPSHOT_LATER)
+    # --- pause/snapshot/resume (paper §IV, batched) ---
 
-    def restore(self, path: str):
-        raise NotImplementedError(SNAPSHOT_LATER)
+    def save(self, path: str):
+        """Snapshot the fleet: its lane-batched state + scenario metadata.
+        The full per-lane specs ride in ``extra`` so a later consumer can
+        map a spec back to its lane."""
+        save_snapshot(path, self.state, self.cfg, self.windows_done,
+                      extra={"scenario_names": self.names,
+                             "schedulers": [s.scheduler for s in self.specs],
+                             "specs": [dataclasses.asdict(s)
+                                       for s in self.specs]})
+
+    def _check_restorable(self, state):
+        if state.window.shape[0] != self.n_scenarios:
+            raise ValueError(
+                f"snapshot holds {state.window.shape[0]} scenarios, fleet "
+                f"has {self.n_scenarios}")

@@ -8,8 +8,7 @@ tensors, the lane axis of the batched engine (see batch.py).
 
 The dataclass, its validation and the sweep helpers are the reference's
 (tests hold the fields and defaults equal); scheduler names are checked
-against the port's registry, so a spec naming an RNG scheduler raises its
-``NotImplementedError``.
+against the port's registry.
 """
 from __future__ import annotations
 
@@ -19,7 +18,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.sched.registry import get_entry
+from repro_torch.sched import SCHEDULERS
 
 
 @dataclass(frozen=True)
@@ -52,10 +51,9 @@ class ScenarioSpec:
     evict_storm_frac: float = 0.0
 
     def __post_init__(self):
-        try:
-            get_entry(self.scheduler)   # RNG schedulers raise here
-        except KeyError as e:
-            raise ValueError(e.args[0]) from None
+        if self.scheduler not in SCHEDULERS:
+            raise ValueError(f"unknown scheduler {self.scheduler!r}; "
+                             f"have {list(SCHEDULERS)}")
         for f in ("node_outage_frac", "priority_surge_frac",
                   "evict_storm_frac"):
             v = getattr(self, f)

@@ -1,13 +1,14 @@
-"""Classic placement heuristics — greedy best-fit, first-fit, round-robin —
-as registry proposals. Each only ranks nodes per task; the shared finaliser
-(``sched.commit``) re-checks capacity in priority order."""
+"""Classic placement heuristics — greedy best-fit, first-fit, round-robin,
+random — as registry proposals. Each only ranks nodes per task; the shared
+finaliser (``sched.commit``) re-checks capacity in priority order."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.sched.registry import register_scheduler
 from repro_torch.sched.table import (FAM_NODE_ORDER, FAM_SCORES, TableForm,
-                                     tf_node_order, tf_scores)
+                                     tf_node_order, tf_random, tf_scores)
 
 
 def propose_greedy(state, cfg, rng, idx, valid, base_ok, scores):
@@ -35,10 +36,15 @@ def propose_round_robin(state, cfg, rng, idx, valid, base_ok, scores):
     return _node_order_pref(start, cfg.max_nodes, base_ok)
 
 
+def propose_random(state, cfg, rng, idx, valid, base_ok, scores):
+    """Random feasible node (uniform preference draw)."""
+    return prng.uniform(rng, base_ok.shape)
+
+
 # Table forms make these switchless in fleets (sched.table): greedy fuses
 # as the score family, first_fit/round_robin as node-order rotations (rot=0
 # / rot=131 — ``start = (window * rot) % N`` reproduces the proposals
-# bitwise).
+# bitwise), random stays an external (rng-derived) form.
 greedy = register_scheduler("greedy", propose_greedy, dynamic_bestfit=True,
                             doc="Best-fit decreasing: tightest feasible "
                                 "node, re-scored dynamically.",
@@ -54,3 +60,6 @@ round_robin = register_scheduler("round_robin", propose_round_robin,
                                  table_form=TableForm(tf_node_order,
                                                       (131.0,),
                                                       FAM_NODE_ORDER))
+random_fit = register_scheduler("random", propose_random,
+                                doc="Random feasible node (uniform draw).",
+                                table_form=TableForm(tf_random))

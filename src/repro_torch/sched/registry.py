@@ -12,11 +12,10 @@ proposal per lane, one commit).
 
 A scheduler may also register a *table form* (``sched.table``), which lets
 the scenario fleet dispatch it switchlessly and fuse its preference into
-the commit kernel. ``TABLE_FORMS`` is a live view of the registry;
-:func:`snapshot_dispatch` freezes the rows a fleet was built against.
-
-The reference's RNG schedulers (``random`` and the metaheuristics) wait
-for the port of its random streams; asking for one raises and says so.
+the commit kernel. ``SCHEDULERS`` / ``PROPOSERS`` / ``DYNAMIC_BESTFIT`` /
+``TABLE_FORMS`` are live views of the registry (the same dict objects
+forever, updated in place); :func:`snapshot_dispatch` freezes the rows a
+fleet was built against.
 """
 from __future__ import annotations
 
@@ -29,10 +28,6 @@ from repro_torch.core.state import drop, lane, lift
 from repro_torch.sched.base import base_pass
 from repro_torch.sched.commit import finalize
 from repro_torch.sched.table import DispatchTable, TableForm
-
-#: reference schedulers that need the RNG port (a later slice)
-NOT_PORTED = ("random", "simulated_annealing", "tabu_search", "genetic")
-
 
 @dataclasses.dataclass(frozen=True)
 class SchedulerEntry:
@@ -48,7 +43,11 @@ class SchedulerEntry:
 
 
 _REGISTRY: Dict[str, SchedulerEntry] = {}
-#: live view: scheduler name -> its table form (None = opaque)
+# live views: scheduler name -> its entry point, proposal, commit policy
+# and table form (None = opaque)
+SCHEDULERS: Dict[str, Callable] = {}
+PROPOSERS: Dict[str, Callable] = {}
+DYNAMIC_BESTFIT: Dict[str, bool] = {}
 TABLE_FORMS: Dict[str, Optional[TableForm]] = {}
 
 
@@ -94,6 +93,9 @@ def register_scheduler(name: str, propose: Callable, *,
         dynamic_bestfit=dynamic_bestfit,
         doc=doc if doc is not None else (propose.__doc__ or "").strip(),
         table_form=table_form)
+    SCHEDULERS[name] = scheduler
+    PROPOSERS[name] = propose
+    DYNAMIC_BESTFIT[name] = dynamic_bestfit
     TABLE_FORMS[name] = table_form
     return scheduler
 
@@ -103,6 +105,9 @@ def unregister_scheduler(name: str) -> None:
     if name not in _REGISTRY:
         raise KeyError(f"unknown scheduler {name!r}; have {list(_REGISTRY)}")
     del _REGISTRY[name]
+    del SCHEDULERS[name]
+    del PROPOSERS[name]
+    del DYNAMIC_BESTFIT[name]
     del TABLE_FORMS[name]
 
 
@@ -121,11 +126,6 @@ def snapshot_dispatch(scheduler_names: Tuple[str, ...]) -> DispatchTable:
 def get_entry(name: str) -> SchedulerEntry:
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"scheduler {name!r} draws random numbers and waits for the port "
-            "of the reference's RNG streams (a later slice); ported: "
-            f"{list(_REGISTRY)}")
     raise KeyError(f"unknown scheduler {name!r}; have {list(_REGISTRY)}")
 
 

@@ -27,6 +27,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.state import lane
 from repro_torch.kernels.placement_commit import (FAM_EXTERNAL,
                                                   FAM_NODE_ORDER, FAM_SCORES)
@@ -113,6 +114,11 @@ def tf_node_order(cfg, ctx: SchedContext, rng, params):
     return (-order.to(torch.float32))[None, :].expand(ctx.base_ok.shape)
 
 
+def tf_random(cfg, ctx: SchedContext, rng, params):
+    """Uniform random preference draw (rng-derived — external family)."""
+    return prng.uniform(rng, ctx.base_ok.shape)
+
+
 def make_switchless_dispatch(cfg, table: DispatchTable,
                              lane_scheds: Tuple[int, ...]):
     """Build the fleet's batched switchless scheduler pass.
@@ -125,7 +131,9 @@ def make_switchless_dispatch(cfg, table: DispatchTable,
     One base pass (kernel A) for all lanes; each external family runs its
     transform once per lane of its own sub-batch and is stacked into
     ``ext``; then one fused commit (kernel D) derives the score and
-    node-order preferences in the kernel and commits every lane.
+    node-order preferences in the kernel and commits every lane. Every lane
+    gets the same window key ``rng``, as the reference's vmapped transform
+    does (common random numbers across the what-if lanes).
     """
     assert table.switchless, "opaque scheduler in a switchless dispatch"
     B = len(lane_scheds)
@@ -176,4 +184,4 @@ def make_switchless_dispatch(cfg, table: DispatchTable,
 
 __all__ = ["SchedContext", "TableForm", "DispatchTable", "FAM_EXTERNAL",
            "FAM_NODE_ORDER", "FAM_SCORES", "context_from_state", "tf_scores",
-           "tf_node_order", "make_switchless_dispatch"]
+           "tf_node_order", "tf_random", "make_switchless_dispatch"]

@@ -3,7 +3,10 @@ reference's: task states, usage columns, priority classes, event kinds,
 constraint ops, the SimConfig dataclass (fields and defaults), the cell-A
 config, the numpy event packing, trace generation and GCD parsing, and the
 scenario fleet's proposal-family codes, perturbation salts, ScenarioSpec
-(fields, defaults, validation) and knob labels; the training side's
+(fields, defaults, validation) and knob labels; the chaos hooks' fault
+kinds and the retry and breaker policies' defaults, the pre-compiled
+stack's meta fields, the snapshot's meta keys, OpenB's vocabularies and the
+full-cell config; the training side's
 TrainConfig and ShapeConfig (fields and defaults), SHAPES, and each
 architecture's parameter counts and ``describe`` line."""
 import dataclasses
@@ -20,6 +23,11 @@ import repro.core.stats as ref_stats
 import repro.core.tracegen as ref_tracegen
 import repro.kernels.placement_commit.kernel as ref_pc_kernel
 import repro.kernels.window_stats.ref as ref_ws
+import repro.core.precompile as ref_precompile
+import repro.parsers.alibaba_openb as ref_openb
+import repro.resilience.faults as ref_faults
+import repro.resilience.policy as ref_policy
+from repro.configs import agocs_full_cell as ref_full_cell
 import repro.scenarios.perturb as ref_perturb
 import repro.scenarios.spec as ref_spec
 from repro.configs import agocs_cell_a as ref_cell_a
@@ -34,6 +42,11 @@ import repro_torch.core.stats as stats
 import repro_torch.core.tracegen as tracegen
 import repro_torch.kernels.placement_commit as pc
 import repro_torch.kernels.window_stats.ref as ws
+import repro_torch.core.precompile as precompile
+import repro_torch.parsers.alibaba_openb as openb
+import repro_torch.resilience.faults as faults
+import repro_torch.resilience.policy as policy
+from repro_torch.configs import agocs_full_cell
 import repro_torch.scenarios.perturb as perturb
 import repro_torch.scenarios.spec as spec
 from repro_torch.configs import agocs_cell_a, get_sim_config
@@ -57,6 +70,11 @@ NAMES = [
     (perturb, ref_perturb, ("_SALT_OUTAGE", "_SALT_THIN", "_SALT_SURGE",
                             "_SALT_STORM", "_SALT_INJECT", "_SALT_LIFETIME")),
     (spec, ref_spec, ("_KNOB_LABELS", "_FIELD_BY_LABEL")),
+    (faults, ref_faults, ("KINDS",)),
+    (precompile, ref_precompile, ("_META_FIELDS", "DEFAULT_SHARD_WINDOWS",
+                                  "_PARSE_STAT_FIELDS")),
+    (openb, ref_openb, ("_QOS_PRIO", "_QOS_DEFAULT_PRIO", "GPU_MODEL_ATTR")),
+    (agocs_full_cell, ref_full_cell, ("MONTH_WINDOWS",)),
 ]
 
 
@@ -73,6 +91,37 @@ def test_event_kinds_equal():
     assert events.EventWindow._fields == ref_events.EventWindow._fields
     assert events.HostEvent._fields == ref_events.HostEvent._fields
     assert tracegen.MONTH_WINDOWS == REF_MONTH
+
+
+@pytest.mark.parametrize("name", ["RetryPolicy", "BreakerPolicy",
+                                  "FaultSpec"])
+def test_resilience_dataclasses_equal(name):
+    mine = [(f.name, f.default) for f in
+            dataclasses.fields(getattr(policy if name != "FaultSpec"
+                                       else faults, name))]
+    ref = [(f.name, f.default) for f in
+           dataclasses.fields(getattr(ref_policy if name != "FaultSpec"
+                                      else ref_faults, name))]
+    assert mine == ref
+
+
+def test_snapshot_meta_keys_equal(tmp_path):
+    """Both packages write the same npz members and meta keys."""
+    import json
+    from repro.core.snapshot import save_snapshot as ref_save
+    from repro_torch.core.snapshot import save_snapshot
+    cfg = config.REDUCED_SIM
+    save_snapshot(str(tmp_path / "a.npz"), state.init_state(cfg, "cpu"),
+                  cfg, 3, extra={"x": 1})
+    ref_save(str(tmp_path / "b.npz"), ref_state.init_state(
+        ref_config.REDUCED_SIM), ref_config.REDUCED_SIM, 3, extra={"x": 1})
+    metas = []
+    for name in ("a.npz", "b.npz"):
+        with np.load(tmp_path / name) as z:
+            meta = json.loads(str(z["__meta__"]))
+            metas.append((sorted(z.files), sorted(meta), meta["crc"],
+                          meta["extra"], meta["windows_done"]))
+    assert metas[0] == metas[1]
 
 
 def test_state_fields_equal():
@@ -105,8 +154,11 @@ def test_simconfig_validator_equal(bad):
 @pytest.mark.parametrize("mine,ref", [
     (config.REDUCED_SIM, ref_config.REDUCED_SIM),
     (agocs_cell_a.CONFIG, ref_cell_a.CONFIG),
-    (get_sim_config(), ref_cell_a.CONFIG)], ids=["reduced", "cell_a",
-                                                  "get_sim_config"])
+    (get_sim_config(), ref_cell_a.CONFIG),
+    (agocs_full_cell.CONFIG, ref_full_cell.CONFIG),
+    (get_sim_config("agocs_full_cell"), ref_full_cell.CONFIG)],
+    ids=["reduced", "cell_a", "get_sim_config", "full_cell",
+         "get_sim_config_full_cell"])
 def test_configs_equal(mine, ref):
     assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
 

@@ -259,9 +259,19 @@ def test_entry_points_raise_without_a_card():
 
 
 def test_rng_schedulers_wait_for_their_slice():
+    """The slice they waited for has landed: every built-in of the
+    reference's registry resolves, in the reference's order, and an unknown
+    name still raises."""
+    from repro.sched import SCHEDULERS as REF_SCHEDULERS
+    from repro_torch.sched import SCHEDULERS, list_schedulers
+    import repro_torch.sched.registry as registry
+    assert not hasattr(registry, "NOT_PORTED")
     for name in ("random", "simulated_annealing", "tabu_search", "genetic"):
-        with pytest.raises(NotImplementedError, match="RNG"):
-            get_scheduler(name)
+        assert get_scheduler(name).__name__ == name
+    builtins = ["greedy", "first_fit", "round_robin", "random",
+                "simulated_annealing", "tabu_search", "genetic"]
+    assert [e.name for e in list_schedulers()][:7] == builtins
+    assert list(SCHEDULERS)[:7] == list(REF_SCHEDULERS)[:7] == builtins
     with pytest.raises(KeyError):
         get_scheduler("no_such_scheduler")
 

@@ -52,7 +52,11 @@ def test_port_imports_with_jax_and_reference_blocked():
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.kernels.fused_ce.ops, repro_torch.train.step, "
             "repro_torch.distributed.fault, repro_torch.checkpoint.ckpt, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, repro_torch.core.prng, "
+            "repro_torch.sched.metaheuristics, repro_torch.core.snapshot, "
+            "repro_torch.core.precompile, repro_torch.resilience, "
+            "repro_torch.parsers.alibaba_openb, "
+            "repro_torch.configs.agocs_full_cell\n"
             "assert 'jax' not in [m.split('.')[0] for m, v in "
             "sys.modules.items() if v is not None]\n"
             "print('ok')\n")

@@ -8,7 +8,11 @@ memory once held (12,500, 20,000 and 150,000 nodes, every mode and family,
 R from 1 to 6); the engine and the scenario fleet (both dispatch paths),
 the LM serving path with kernel F, kernel E's lane form (B=1 and 8, V of
 1-12, skewed and empty cases, one to four digit passes, and off-grid data
-at cell-A shape against the host's task-order f32 sum), and kernel G (the
+at cell-A shape against the host's task-order f32 sum, and at the
+searches' surrogate shape: T=1,024 tasks into 12,500 nodes, B=1 and the
+GA's B=8), the key stream's draws (card against CPU, bitwise, one key and a key a
+row, drawn in many small chunks of the flat index), the four stochastic
+schedulers through the engine, and kernel G (the
 fused cross-entropy: small ragged shapes, which body serves which call,
 qwen3-4b's training shape, the gradients of the loss built on it, one
 train step), on the card against the CPU path or the plain version.
@@ -509,6 +513,68 @@ def test_fleet_on_card_matches_cpu(dev, dispatch):
             window_to_torch(ws, d), knobs, cfg, names, 0, True,
             snapshot_dispatch(names),
             tuple(names.index(s.scheduler) for s in specs))
+        out[d.type] = (state_to_numpy(state),
+                       {k: v.cpu().numpy() for k, v in rows.items()})
+    (s_g, r_g), (s_c, r_c) = out["cuda"], out["cpu"]
+    for k in s_c:
+        np.testing.assert_array_equal(s_g[k], s_c[k], err_msg=k)
+    for k in r_c:
+        if k in ("util_balance_var", "reserved_balance_var"):
+            np.testing.assert_allclose(r_g[k], r_c[k], rtol=2.5e-7, err_msg=k)
+        else:
+            np.testing.assert_array_equal(r_g[k], r_c[k], err_msg=k)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_segment_usage_surrogate_shape(dev, B):
+    """E as the searches' surrogate calls it: each of P=1,024 tasks' (R=3)
+    request into its argmax node of 12,500, masked by the task's weight;
+    B=1 for SA and tabu, B=8 (one lane an individual) for the GA."""
+    r = np.random.default_rng(23 + B)
+    P, N, R = 1024, 12_500, 3
+    choice = torch.from_numpy(r.integers(0, N, (B, P)).astype(np.int32))
+    req = _g(r, 1, 48, (P, R))[None].expand(B, P, R)
+    weight = torch.from_numpy(r.random(P) < 0.9)[None].expand(B, P)
+    args = (choice, req, weight, N)
+    n = su_ops.segment_usage_cuda.launches
+    got = su_ops.segment_usage_lanes(*[x.to(dev) if torch.is_tensor(x)
+                                       else x for x in args])
+    assert su_ops.segment_usage_cuda.launches == n + 1
+    want = segment_usage_lanes_ref(*args)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("shape", [(24, 1000), (8, 24, 1000)],
+                         ids=["one_key", "a_key_a_row"])
+def test_key_draws_on_card_equal_cpu(dev, shape, monkeypatch):
+    """split, uniform and randint on the card give the CPU's bits, drawn
+    in many chunks of the flat index (the draws are counter-based, so
+    small chunks show what cell A's shapes would; ``chip_smoke.py`` draws
+    those)."""
+    from repro_torch.core import prng
+    monkeypatch.setattr(prng, "CHUNK", 4096)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        k = prng.split(prng.key(7, d), 4)
+        out[d.type] = (prng.split(k, 3), prng.uniform(k[1], shape),
+                       prng.randint(k[2], 0, 12_500, shape[-2:]),
+                       prng.uniform(k[3, None].expand(shape[0], 2),
+                                    shape[1:]))
+    for g, c in zip(out["cuda"], out["cpu"]):
+        assert g.dtype == c.dtype and torch.equal(g.cpu(), c)
+
+
+@pytest.mark.parametrize("scheduler", ["random", "simulated_annealing",
+                                       "tabu_search", "genetic"])
+def test_stochastic_engine_on_card_matches_cpu(dev, scheduler):
+    cfg = dataclasses.replace(REDUCED_SIM, max_nodes=12, max_tasks=128,
+                              max_events_per_window=64, sched_batch=32)
+    ws = _soup(cfg)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        state, rows = engine.run_windows(init_state(cfg, d),
+                                         window_to_torch(ws, d), cfg,
+                                         get_scheduler(scheduler), 5)
         out[d.type] = (state_to_numpy(state),
                        {k: v.cpu().numpy() for k, v in rows.items()})
     (s_g, r_g), (s_c, r_c) = out["cuda"], out["cpu"]

@@ -20,6 +20,8 @@
   CPU; the entry points that wait for later slices.
 """
 import dataclasses
+import os
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -419,24 +421,46 @@ def test_whatif_cli_on_the_cpu(tmp_path, capsys):
     assert "4 scenarios" in text and "greedy/outage=0.2" in text
     assert len(report["scenarios"]) == 4 and out.exists()
     assert report["scenarios"][0]["placements"] > 0
-    for flag in (["--mesh", "2"], ["--snapshot", "x"], ["--replay", "x"],
-                 ["--precompile", "x"], ["--serve"]):
+    for flag in (["--mesh", "2"], ["--serve"]):
         with pytest.raises(SystemExit) as e:
             whatif.main(["--device", "cpu"] + flag)
         assert e.value.code != 0, flag
+    # the replay flags run: pre-compile + snapshot, then a replay from a
+    # window inside the stack
+    stack, snap = tmp_path / "stack.npz", tmp_path / "fleet.npz"
+    small = ["--nodes", "32", "--jobs", "40", "--windows", "12",
+             "--schedulers", "greedy,random", "--device", "cpu"]
+    whatif.main(small + ["--precompile", str(stack), "--snapshot",
+                         str(snap)])
+    assert stack.exists() and snap.exists()
+    capsys.readouterr()
+    report = whatif.main(small + ["--replay", str(stack), "--start-window",
+                                  "4"])
+    text = capsys.readouterr().out
+    assert "zero parses" in text and "simulated 8 windows" in text
+    assert len(report["scenarios"]) == 2
 
 
 def test_entry_points_that_wait_for_later_slices():
     specs = [ScenarioSpec()]
     with pytest.raises(NotImplementedError, match="mesh"):
         ScenarioFleet(CFG, iter(()), specs, mesh=object(), device="cpu")
+    # snapshots, pre-compiled replay and the RNG schedulers have landed
     fleet = ScenarioFleet(CFG, iter(()), specs, device="cpu")
-    for call in (lambda: fleet.save("x"), lambda: fleet.restore("x"),
-                 lambda: ScenarioFleet.from_precompiled(CFG, "x", specs)):
-        with pytest.raises(NotImplementedError, match="slice"):
-            call()
-    with pytest.raises(NotImplementedError, match="RNG"):
-        ScenarioSpec(scheduler="random")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "fleet.npz")
+        fleet.save(path)
+        again = ScenarioFleet(CFG, iter(()), specs, device="cpu")
+        again.restore(path)
+        for f in fleet.state._fields:
+            assert torch.equal(getattr(again.state, f),
+                               getattr(fleet.state, f)), f
+        stack = os.path.join(d, "stack.npz")
+        from repro_torch.core.precompile import precompile_stream
+        precompile_stream(CFG, iter(()), stack, 0)
+        assert ScenarioFleet.from_precompiled(CFG, stack, specs,
+                                              device="cpu").specs == specs
+    assert ScenarioSpec(scheduler="random").scheduler == "random"
     with pytest.raises(ValueError, match="unknown scheduler"):
         ScenarioSpec(scheduler="no_such_scheduler")
     with pytest.raises(ValueError, match="inject_slots"):
