@@ -118,9 +118,30 @@ Phases, each printing its own lines:
      floor (the same P tasks over one node a block, where a task is one
      block reduction and one exchange of the blocks' pairs and nothing
      else);
-  10. a ``kernels:`` status line, phase 6's numbers as one JSON line, and
-     the JSON kernel table (seven kernels, launches by path; F's body and
-     tensor-core launches, B and D's cluster size; E's surrogate shape).
+  10. the what-if service at cell A: the trace of phases 4-5 packed with
+     the ``whatif`` CLI's 1,024 injection rows, pre-compiled in phase 4
+     (64 windows, chunks of 32); a ``WhatIfServer`` (greedy, first_fit,
+     random; 8 lanes; batch_windows 32) warmed, fork points every 32
+     windows from a 3-lane trunk; burst 1, eight strangers from window 0
+     (3 schedulers x outage {0, 0.2}, capacity 0.9, storm 0.05), must ride
+     one launch and equal a direct 8-lane ``ScenarioFleet.from_precompiled``
+     lane by lane, every column bitwise, with A, C and D launched once a
+     window and E as often as in the direct fleet (counts reset just
+     before the batch, read just after); burst 2, three fork continuations
+     from window 32, each bitwise equal to windows [32, 64) of its trunk
+     lane run from window 0; a burst-1 query re-served under two injected
+     ``engine_launch`` faults, the same frame, two retries, no errors; the
+     service's numbers (warm and fork-point seconds, a fork point's bytes,
+     latency percentiles, lane-windows/s, window-cache hits and misses,
+     peak memory); then ``core.fleet.run_fleet`` (random, 4 replicas, 8
+     windows; counts reset before, read after), each replica bitwise equal
+     to ``run_windows`` seeded seed + i; a ``Simulation`` paused from
+     another thread for 0.2 s (it must not advance) and resumed, equal to
+     a straight run; ``monitor.render`` of phase 4's final state;
+  11. a ``kernels:`` status line, phase 6's and phase 10's numbers as JSON
+     lines, and the JSON kernel table (seven kernels, launches by path; F's
+     body and tensor-core launches, B and D's cluster size; E's surrogate
+     shape).
 
 The seven CUDA kernels are built at first use from every
 ``src/repro_torch/csrc/*.cu`` (one nvcc per source, all started together)
@@ -139,6 +160,7 @@ import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -185,6 +207,10 @@ STOCHASTIC = ("random", "simulated_annealing", "tabu_search", "genetic")
 STOCH_WINDOWS = 8             # windows of each stochastic run (phase 6)
 STOCH_BATCH = 4               # their batches: a snapshot between two
 GA_POP = 8                    # the genetic scheduler's population
+SERVICE_SCHEDULERS = ("greedy", "first_fit", "random")   # phase 10's table
+SERVICE_LANES = 8             # the server's lanes (max_lanes)
+SERVICE_BW = 32               # its batch_windows and fork cadence
+FLEET_REPLICAS = 4            # run_fleet's replicas (phase 10)
 
 
 PLUGIN = "smoke_pack_left"     # the fleet's external-family lane
@@ -341,7 +367,13 @@ def main(argv=None) -> int:
     from repro_torch.kernels.window_stats.ref import window_reductions_ref
     from repro_torch.kernels.placement_commit.ref import (
         sched_commit_fleet_ref)
-    from repro_torch.core import engine, prng
+    from repro_torch import resilience
+    from repro_torch.core import engine, monitor, prng
+    from repro_torch.core import fleet as fleet_mod
+    from repro_torch.core.precompile import precompile_trace
+    from repro_torch.core.engine import run_windows
+    from repro_torch.core.state import init_state
+    from repro_torch.service import WhatIfQuery, WhatIfServer
     from repro_torch.core.events import stack_windows, window_to_torch
     from repro_torch.core.precompile import precompile_stream, verify_stack
     from repro_torch.core.snapshot import save_snapshot
@@ -816,6 +848,14 @@ def main(argv=None) -> int:
     fleet_ws = list(fparser.packed_windows(
         FLEET_WINDOWS, start_us=default_start_us("gcd", fcfg)))
     t_fparse = time.time() - t0
+    # phase 10's stack: the same trace and packing, args.windows windows
+    serve_tmp = tempfile.TemporaryDirectory()
+    serve_stack = str(Path(serve_tmp.name) / "stack.npz")
+    t0 = time.time()
+    n_stack = precompile_trace(fcfg, tmp.name, serve_stack, args.windows,
+                               start_us=default_start_us("gcd", fcfg),
+                               shard_windows=SERVICE_BW)
+    t_stack = time.time() - t0
     tmp.cleanup()
     assert fparser.stats.slot_overflow == 0, "slot_overflow in the parse"
     n_events = int(sum(int(w.n_valid) for w in windows))
@@ -849,6 +889,7 @@ def main(argv=None) -> int:
     print(f"launches (greedy run): {launches}")
     assert all(launches[k] > 0 for k in MAIN_PATH), launches
     assert launches["segment_usage"] >= 2, launches
+    monitor_text = monitor.render(state, cfg, sim.windows_done)  # phase 10
     del state, sim
 
     reset_counts()
@@ -1674,7 +1715,220 @@ def main(argv=None) -> int:
           f"{b_ms:.4f} ms ({b_by}) [{smi}]")
     del cx, cw, clab, clab_l
 
-    # ---- 10. the kernel table ------------------------------------------
+    # ---- 10. the what-if service, run_fleet, pause, the monitor ---------
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"stack: {n_stack} cell-A windows pre-compiled in {t_stack:.1f}s "
+          f"({Path(serve_stack).stat().st_size / 2 ** 20:.1f} MiB, chunks "
+          f"of {SERVICE_BW}, inject_slots {fcfg.inject_slots})")
+    t0 = time.time()
+    srv = WhatIfServer(fcfg, serve_stack, schedulers=SERVICE_SCHEDULERS,
+                       max_lanes=SERVICE_LANES, batch_windows=SERVICE_BW,
+                       seed=args.seed, device=dev)
+    srv.start(warm=True)
+    warm_s = time.time() - t0
+    trunk = [ScenarioSpec(name=f"trunk/{s}", scheduler=s)
+             for s in SERVICE_SCHEDULERS]
+    t0 = time.time()
+    fork_ws = srv.build_fork_points(trunk, every=SERVICE_BW)
+    fork_s = time.time() - t0
+    assert fork_ws == list(range(SERVICE_BW, n_stack + 1, SERVICE_BW)), \
+        fork_ws
+    fork_bytes = nbytes(*srv.forks.get(SERVICE_BW)[0])
+    print(f"service: warm in {warm_s:.3f}s, fork points at {fork_ws} from "
+          f"a {len(trunk)}-lane trunk in {fork_s:.3f}s, "
+          f"{fork_bytes / 2 ** 20:.1f} MiB a fork point on the card [{smi}]")
+
+    # burst 1: eight strangers from window 0, one launch; launch counts
+    # reset just before and read just after
+    burst1 = [ScenarioSpec(name=f"{s}/outage={o:g}", scheduler=s,
+                           node_outage_frac=o)
+              for s in SERVICE_SCHEDULERS for o in (0.0, 0.2)]
+    burst1 += [ScenarioSpec(name="greedy/cap=0.9", capacity_scale=0.9),
+               ScenarioSpec(name="greedy/storm=0.05", evict_storm_frac=0.05)]
+    assert len(burst1) == SERVICE_LANES
+    batches0 = srv.stats()["batches"]
+    reset_counts()
+    t0 = time.time()
+    tickets = [srv.submit(WhatIfQuery(sp, n_windows=SERVICE_BW,
+                                      seed=args.seed)) for sp in burst1]
+    res1 = [t.wait(timeout=600) for t in tickets]
+    burst1_s = time.time() - t0
+    launches_service = {k: fn.launches for k, fn in counters.items()}
+    assert all(r.ok() for r in res1), [r.error for r in res1]
+    assert {(r.batch_lanes, r.batch_size) for r in res1} == \
+        {(SERVICE_LANES, SERVICE_LANES)}, "burst 1 did not ride one launch"
+    assert srv.stats()["batches"] == batches0 + 1
+    # the same eight specs as a direct fleet: every column bitwise
+    reset_counts()
+    direct = ScenarioFleet.from_precompiled(
+        srv.cfg, serve_stack, burst1, batch_windows=SERVICE_BW,
+        seed=args.seed, n_windows=SERVICE_BW, device=dev)
+    direct.run()
+    launches_direct = {k: fn.launches for k, fn in counters.items()}
+    dframe = direct.stats_frame()
+    for i, r in enumerate(res1):
+        for k, v in r.frame.items():
+            assert np.array_equal(v, dframe[k][:, i]), (r.name, k)
+    print(f"burst 1: {len(res1)} queries from window 0 rode one launch of "
+          f"{SERVICE_LANES} lanes; every frame == its lane of a direct "
+          f"{SERVICE_LANES}-lane fleet, every column bitwise")
+    print(f"launches (served batch): {launches_service}; direct fleet: "
+          f"{launches_direct}")
+    for k in ("constraint_match", "window_stats", "sched_commit"):
+        assert launches_service[k] == SERVICE_BW, (k, launches_service)
+    assert launches_service["placement_commit"] == 0, launches_service
+    assert launches_service["segment_usage"] == \
+        launches_direct["segment_usage"] > 0, (launches_service,
+                                               launches_direct)
+    del direct, dframe
+
+    # burst 2: fork continuations of the three trunk lanes, one launch of
+    # 3 live and 5 pad lanes, against the trunk lanes run from window 0
+    burst2 = [ScenarioSpec(name=f"{s}@w{SERVICE_BW}", scheduler=s)
+              for s in SERVICE_SCHEDULERS]
+    t0 = time.time()
+    tickets = [srv.submit(WhatIfQuery(sp, n_windows=SERVICE_BW,
+                                      start_window=SERVICE_BW,
+                                      seed=args.seed)) for sp in burst2]
+    res2 = [t.wait(timeout=600) for t in tickets]
+    burst2_s = time.time() - t0
+    assert all(r.ok() for r in res2), [r.error for r in res2]
+    assert {r.batch_lanes for r in res2} == {len(burst2)}
+    tdirect = ScenarioFleet.from_precompiled(
+        srv.cfg, serve_stack, trunk, batch_windows=SERVICE_BW,
+        seed=args.seed, n_windows=2 * SERVICE_BW, device=dev)
+    tdirect.run()
+    tframe = tdirect.stats_frame()
+    for i, r in enumerate(res2):
+        for k, v in r.frame.items():
+            assert np.array_equal(v, tframe[k][SERVICE_BW:, i]), (r.name, k)
+    print(f"burst 2: {len(res2)} fork continuations from window "
+          f"{SERVICE_BW} ({len(res2)} live + {SERVICE_LANES - len(res2)} "
+          f"pad lanes) == windows [{SERVICE_BW}, {2 * SERVICE_BW}) of their "
+          "trunk lanes run from window 0, every column bitwise")
+    del tdirect, tframe
+
+    # a burst-1 query again under two injected launch faults
+    res0 = srv.stats()["resilience"]["retries"]
+    plan = resilience.FaultPlan().on("engine_launch", "transient", times=2)
+    with resilience.armed(plan):
+        again = srv.query(WhatIfQuery(burst1[3], n_windows=SERVICE_BW,
+                                      seed=args.seed), timeout=600)
+    assert again.ok(), again.error
+    for k, v in again.frame.items():
+        assert np.array_equal(v, res1[3].frame[k]), k
+    st = srv.stats()
+    assert st["resilience"]["retries"] - res0 == 2, st["resilience"]
+    assert st["errors_by_code"] == {}, st["errors_by_code"]
+    print(f"chaos: {burst1[3].name} re-served under two transient "
+          "engine_launch faults: 2 retries, errors by code {}, the same "
+          "frame bitwise")
+    served = res1 + res2 + [again]
+    lat = {k: np.percentile([getattr(r, k) for r in served], [50, 99])
+           for k in ("total_s", "queue_s", "exec_s")}
+    service = dict(
+        warm_s=warm_s, fork_points_s=fork_s, fork_point_bytes=fork_bytes,
+        burst1_lane_windows_per_s=len(res1) * SERVICE_BW / burst1_s,
+        burst2_lane_windows_per_s=len(res2) * SERVICE_BW / burst2_s,
+        server_lane_windows_per_s=st["lane_windows_per_s"],
+        **{f"{k}_p{q}": float(v[j]) for k, v in lat.items()
+           for j, q in enumerate((50, 99))},
+        window_cache=st["window_cache"], batches=st["batches"],
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"service at cell A ({len(served)} queries; burst 1 "
+          f"{service['burst1_lane_windows_per_s']:.2f} lane-windows/s, "
+          f"burst 2 {service['burst2_lane_windows_per_s']:.2f}; total_s p50 "
+          f"{service['total_s_p50']:.4f} p99 {service['total_s_p99']:.4f}; "
+          f"window cache {st['window_cache']}; peak "
+          f"{service['peak_gib']:.2f} GiB) [{smi}]")
+    srv.stop()
+    del srv, res1, res2, again, served
+    serve_tmp.cleanup()
+
+    # run_fleet: random, FLEET_REPLICAS replicas over STOCH_WINDOWS windows,
+    # each replica against run_windows seeded seed + i
+    fw = window_to_torch(stack_windows(windows[:STOCH_WINDOWS]), dev)
+    reset_counts()
+    t0 = time.time()
+    fstates, fstats = fleet_mod.run_fleet(fw, cfg, "random", FLEET_REPLICAS,
+                                          seed=args.seed)
+    torch.cuda.synchronize()
+    rf_s = time.time() - t0
+    launches_run_fleet = {k: fn.launches for k, fn in counters.items()}
+    assert all(launches_run_fleet[k] > 0 for k in MAIN_PATH[:3]), \
+        launches_run_fleet
+    for i in range(FLEET_REPLICAS):
+        # (phase 7 rebinds the name ``engine`` to its ServingEngine)
+        st_i, rows_i = run_windows(init_state(cfg, dev), fw, cfg,
+                                   get_scheduler("random"),
+                                   seed=args.seed + i)
+        for f in st_i._fields:
+            assert torch.equal(getattr(fstates, f)[i], getattr(st_i, f)), \
+                f"run_fleet replica {i}: {f}"
+        for k, v in rows_i.items():
+            assert torch.equal(fstats[k][i], v), f"run_fleet replica {i}: {k}"
+        del st_i, rows_i
+    assert any(not torch.equal(fstates.task_node[0], fstates.task_node[i])
+               for i in range(1, FLEET_REPLICAS)), "replicas all equal"
+    print(f"run_fleet random: {FLEET_REPLICAS} replicas x {STOCH_WINDOWS} "
+          f"windows in {rf_s:.3f}s, each == run_windows seeded seed + i "
+          f"(state and stats bitwise), replicas differ; launches "
+          f"{launches_run_fleet} [{smi}]")
+    del fstates, fstats, fw
+
+    # pause: a Simulation held from another thread for 0.2 s does not
+    # advance, and then ends equal to a straight run
+    pw = windows[:STOCH_WINDOWS]
+    straight = Simulation(cfg, iter(pw), scheduler="greedy",
+                          batch_windows=STOCH_BATCH, device=dev)
+    straight.run()
+    psim = Simulation(cfg, iter(pw), scheduler="greedy",
+                      batch_windows=STOCH_BATCH, device=dev)
+    first, held, errors = threading.Event(), threading.Event(), []
+
+    def hold_after_first(s):
+        if s.windows_done == STOCH_BATCH:
+            first.set()
+            held.wait(120)
+
+    def drive():
+        try:
+            psim.run(on_batch=hold_after_first)
+        except BaseException as e:          # re-raised on this thread
+            errors.append(e)
+            first.set()
+
+    runner = threading.Thread(target=drive, daemon=True)
+    runner.start()
+    assert first.wait(300), "the paused run never reached its first batch"
+    psim.pause()
+    held.set()
+    done = psim.windows_done
+    time.sleep(0.2)
+    still = psim.windows_done
+    psim.resume()
+    runner.join(300)
+    assert not runner.is_alive(), "the resumed run did not end"
+    if errors:
+        raise errors[0]
+    assert done == still == STOCH_BATCH, (done, still)
+    assert psim.windows_done == straight.windows_done == STOCH_WINDOWS
+    for f in straight.state._fields:
+        assert torch.equal(getattr(psim.state, f),
+                           getattr(straight.state, f)), f"paused run: {f}"
+    print(f"pause: a Simulation held at window {done} from another thread "
+          f"for 0.2 s stayed there, resumed to window {STOCH_WINDOWS}: every "
+          "state field == the straight run")
+    del straight, psim
+    print(f"monitor.render of phase 4's final state:\n{monitor_text}")
+    service.update(phase_s=time.time() - t_phase, stack_s=t_stack)
+    print(f"phase 10: {service['phase_s']:.1f}s (and the stack's pre-compile "
+          f"in phase 4, {t_stack:.1f}s) [{smi}]")
+
+    # ---- 11. the kernel table ------------------------------------------
     meta = {
         "constraint_match": ("src/repro/kernels/constraint_match/kernel.py:76",),
         "placement_commit": ("src/repro/kernels/placement_commit/kernel.py:121",),
@@ -1694,12 +1948,15 @@ def main(argv=None) -> int:
             "launches": (launches[name] + launches_fleet[name]
                          + launches_serve[name] + launches_train[name]
                          + sum(v[name] for v in launches_stoch.values())
-                         + launches_sfleet[name]),
+                         + launches_sfleet[name] + launches_service[name]
+                         + launches_run_fleet[name]),
             "launches_by_path": {"simulate": launches[name],
                                  "fleet": launches_fleet[name],
                                  **{f"simulate_{k}": v[name]
                                     for k, v in launches_stoch.items()},
                                  "fleet_stochastic": launches_sfleet[name],
+                                 "service": launches_service[name],
+                                 "run_fleet": launches_run_fleet[name],
                                  "serve": launches_serve[name],
                                  "train": launches_train[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1715,6 +1972,7 @@ def main(argv=None) -> int:
     print("kernels: " + " ".join(f"{t['name']}=ok(cuda)" for t in table))
     print("stochastic schedulers at cell A: " + json.dumps(
         {"key_draw_ms": draw_ms, "by_scheduler": stoch_split}))
+    print("service at cell A: " + json.dumps({**service, "card": smi}))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

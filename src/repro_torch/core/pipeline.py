@@ -22,7 +22,7 @@ import collections
 import queue
 import threading
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -180,7 +180,9 @@ class WindowedDriver:
     (consume one stacked window batch, update ``self.state``, return the
     stats rows). The loop is sync-free in the steady state; once more than
     ``max_inflight_batches`` batches are outstanding it waits for the
-    oldest, and a run ends with one synchronisation.
+    oldest, and a run ends with one synchronisation. :meth:`pause` and
+    :meth:`resume` hold and release the loop from another thread, between
+    batches.
     """
 
     state: SimState
@@ -204,6 +206,7 @@ class WindowedDriver:
         self.resyncs_done = 0
         self._since_resync = 0
         self._inflight: "collections.deque" = collections.deque()
+        self._paused = threading.Event()
 
     def _advance(self, batch: EventWindow, seed: int):
         raise NotImplementedError
@@ -216,13 +219,29 @@ class WindowedDriver:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
-    def run(self, max_windows: Optional[int] = None) -> SimState:
+    def pause(self):
+        """Hold the drive loop before its next batch (from any thread)."""
+        self._paused.set()
+
+    def resume(self):
+        self._paused.clear()
+
+    def run(self, max_windows: Optional[int] = None,
+            on_batch: Optional[Callable] = None) -> SimState:
         """Drive the source to its end, or until ``windows_done`` reaches
-        ``max_windows`` (checked after each batch, as the reference does)."""
+        ``max_windows`` (checked after each batch, as the reference does).
+
+        ``on_batch(self)`` is called after each batch's resync, before the
+        pacing sleep, so it sees the state the next batch starts from; the
+        state's tables are updated in place by that batch, so a hook that
+        keeps them clones them.
+        """
         t_start = time.time()
         resync_every = (self.cfg.resync_windows
                         if self.cfg.incremental_accounting else 0)
         for batch in self.prefetcher:
+            while self._paused.is_set():
+                time.sleep(0.01)
             W = batch.kind.shape[0]
             stats = self._advance(batch, self.seed + self.windows_done)
             k = self.cfg.stats_stride
@@ -244,6 +263,8 @@ class WindowedDriver:
                     self.state = self._resync()
                     self.resyncs_done += 1
                     self._since_resync = 0
+            if on_batch is not None:
+                on_batch(self)
             if self.cfg.speed_factor > 0:
                 sim_elapsed = self.windows_done * self.cfg.window_us / 1e6
                 lag = (sim_elapsed / self.cfg.speed_factor

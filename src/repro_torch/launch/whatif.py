@@ -24,9 +24,9 @@ port.
 Sweep axes multiply (cartesian grid). Every scenario sees the same parsed
 event stream; divergence is injected on the device
 (repro_torch/scenarios/perturb.py). Prints the reference CLI's comparison
-table. ``--mesh`` (the mesh-sharded fleet) and ``--serve`` (the what-if
-service) wait for their slices of the port (ROADMAP Queue 1) and exit with
-a message.
+table. ``--serve`` hands the remaining flags to the what-if service's CLI
+(``launch/serve_whatif.py``). ``--mesh`` (the mesh-sharded fleet) waits
+for its slice of the port (ROADMAP Queue 1) and exits with a message.
 """
 from __future__ import annotations
 
@@ -46,9 +46,7 @@ from repro_torch import parsers as trace_parsers
 from repro_torch.scenarios import ScenarioFleet, expand_grid, format_table
 from repro_torch.scenarios.report import to_json
 
-LATER = "waits for a later slice of the port"
-MESH_LATER = f"(the mesh-sharded fleet) {LATER}"
-SERVE_LATER = f"(the what-if service) {LATER}"
+MESH_LATER = "(the mesh-sharded fleet) waits for a later slice of the port"
 
 
 def _floats(s: str):
@@ -105,7 +103,11 @@ def build_specs(args):
 def main(argv=None):
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     if "--serve" in argv:
-        raise SystemExit(f"whatif: --serve {SERVE_LATER}")
+        # persistent serving mode: warm fleet geometry, micro-batched
+        # queries, fork points — its own flag set, in launch/serve_whatif.py
+        argv.remove("--serve")
+        from repro_torch.launch.serve_whatif import main as serve_main
+        return serve_main(argv)
     ap = argparse.ArgumentParser(
         description="batched what-if scenario fleet over one trace")
     ap.add_argument("--trace-dir", default=None,

@@ -30,6 +30,8 @@ import repro.resilience.policy as ref_policy
 from repro.configs import agocs_full_cell as ref_full_cell
 import repro.scenarios.perturb as ref_perturb
 import repro.scenarios.spec as ref_spec
+import repro.service.metrics as ref_service_metrics
+import repro.service.protocol as ref_protocol
 from repro.configs import agocs_cell_a as ref_cell_a
 from repro.configs.agocs_full_cell import MONTH_WINDOWS as REF_MONTH
 from repro.parsers import GCDParser as RefGCDParser
@@ -49,6 +51,8 @@ import repro_torch.resilience.policy as policy
 from repro_torch.configs import agocs_full_cell
 import repro_torch.scenarios.perturb as perturb
 import repro_torch.scenarios.spec as spec
+import repro_torch.service.metrics as service_metrics
+import repro_torch.service.protocol as protocol
 from repro_torch.configs import agocs_cell_a, get_sim_config
 from repro_torch.parsers import GCDParser, default_start_us
 
@@ -268,3 +272,30 @@ def test_shapes_equal():
     assert mine == ref
     assert {k: dataclasses.asdict(v) for k, v in config.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in ref_config.SHAPES.items()}
+
+
+def test_service_error_codes_equal():
+    def codes(m):
+        return {k: v for k, v in vars(m.ErrorCode).items()
+                if not k.startswith("_")}
+    assert codes(protocol) == codes(ref_protocol)
+
+
+@pytest.mark.parametrize("name", ["WhatIfQuery", "WhatIfResult"])
+def test_service_dataclasses_equal(name):
+    def fields(m):
+        return [(f.name, f.default, repr(f.default_factory))
+                for f in dataclasses.fields(getattr(m, name))]
+    assert fields(protocol) == fields(ref_protocol)
+
+
+def test_service_batch_key_and_metrics_keys_equal():
+    kw = dict(n_windows=8, start_window=16, seed=3, deadline_s=1.0,
+              priority=2)
+    assert protocol.WhatIfQuery(spec.ScenarioSpec(), **kw).batch_key() == \
+        ref_protocol.WhatIfQuery(ref_spec.ScenarioSpec(), **kw).batch_key()
+
+    def keys(snap):
+        return sorted(snap), sorted(snap["resilience"])
+    assert keys(service_metrics.ServiceMetrics().snapshot()) == \
+        keys(ref_service_metrics.ServiceMetrics().snapshot())

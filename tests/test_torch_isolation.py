@@ -56,7 +56,9 @@ def test_port_imports_with_jax_and_reference_blocked():
             "repro_torch.sched.metaheuristics, repro_torch.core.snapshot, "
             "repro_torch.core.precompile, repro_torch.resilience, "
             "repro_torch.parsers.alibaba_openb, "
-            "repro_torch.configs.agocs_full_cell\n"
+            "repro_torch.configs.agocs_full_cell, repro_torch.service, "
+            "repro_torch.launch.serve_whatif, repro_torch.core.fleet, "
+            "repro_torch.core.monitor\n"
             "assert 'jax' not in [m.split('.')[0] for m, v in "
             "sys.modules.items() if v is not None]\n"
             "print('ok')\n")

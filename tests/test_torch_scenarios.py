@@ -421,10 +421,21 @@ def test_whatif_cli_on_the_cpu(tmp_path, capsys):
     assert "4 scenarios" in text and "greedy/outage=0.2" in text
     assert len(report["scenarios"]) == 4 and out.exists()
     assert report["scenarios"][0]["placements"] > 0
-    for flag in (["--mesh", "2"], ["--serve"]):
-        with pytest.raises(SystemExit) as e:
-            whatif.main(["--device", "cpu"] + flag)
-        assert e.value.code != 0, flag
+    with pytest.raises(SystemExit) as e:
+        whatif.main(["--device", "cpu", "--mesh", "2"])
+    assert e.value.code != 0
+    # --serve hands the remaining flags to the what-if service's CLI
+    capsys.readouterr()
+    served = whatif.main(["--serve", "--nodes", "32", "--jobs", "40",
+                          "--windows", "16", "--schedulers", "greedy",
+                          "--max-lanes", "2", "--batch-windows", "8",
+                          "--query-windows", "8", "--outage", "0,0.2",
+                          "--device", "cpu"])
+    text = capsys.readouterr().out
+    assert "errors by code: {}" in text and "rode 2/2 lanes" in text
+    assert [r.name for r in served] == ["greedy/outage=0",
+                                        "greedy/outage=0.2"]
+    assert all(r.ok() and r.n_windows == 8 for r in served)
     # the replay flags run: pre-compile + snapshot, then a replay from a
     # window inside the stack
     stack, snap = tmp_path / "stack.npz", tmp_path / "fleet.npz"
