@@ -138,9 +138,34 @@ Phases, each printing its own lines:
      to ``run_windows`` seeded seed + i; a ``Simulation`` paused from
      another thread for 0.2 s (it must not advance) and resumed, equal to
      a straight run; ``monitor.render`` of phase 4's final state;
-  11. a ``kernels:`` status line, phase 6's and phase 10's numbers as JSON
-     lines, and the JSON kernel table (seven kernels, launches by path; F's
-     body and tensor-core launches, B and D's cluster size; E's surrogate
+  11. the MoE and SSD families, after every earlier phase's memory is
+     released: qwen2-moe-a2.7b at full width and depth (24 layers, 60
+     experts top-4 and 4 shared, 14.3 B f32 parameters seeded 0 on the
+     card), F at its prefill shape (4, 512, 16, 128) bf16 against its plain
+     version and timed beside SDPA, ``ServingEngine.generate`` on 4 x 512
+     prompts and 32 new tokens through F (24 launches, counts reset just
+     before and read just after), one MoE layer at the prefill shape run
+     twice and bitwise equal, the share of layer 0's tokens whose experts
+     move between the kernel and xla attention in bf16, greedy tokens of
+     the two paths equal in f32 compute (>= 0.98; the f32 prefill logits
+     within 2e-2 relative L2), and with capacity factor 16 in f32 a 24-token
+     prefill plus 7 decode steps within 2e-2 of the full forward (argmax
+     agreement > 0.98); mamba2-780m at full width (48 layers, 0.78 B):
+     serving at 4 x 512 (no kernel: no attention layer), a 512-token
+     prefill plus 31 decode steps in f32 within 2e-2 of a full forward over
+     640 tokens, the intra-chunk decay's gradient at chunk 128 (the
+     reference's form NaN, the port's finite), G at its training shape
+     (2,048, 1,536, 50,432) bf16 against its plain version and timed, and
+     three training steps with ``chunked_ce=True`` and full remat (G once a
+     step, finite losses and gradient norms); jamba-1.5-large-398b reduced
+     (one repeat of its 8 positions, chunk 8, capacity factor 16, f32, F
+     pallas) prefill plus 7 decode steps within 1e-3 of its full forward;
+     prefill, decode, step times, tokens/s, peak memory and a profile of
+     each path, printed beside the card's name and power limit;
+  12. a ``kernels:`` status line, phase 6's, phase 10's and phase 11's
+     numbers as JSON lines, and the JSON kernel table (seven kernels,
+     launches by path; F's body and tensor-core launches, F at qwen2-moe's
+     and G at mamba2's shapes, B and D's cluster size; E's surrogate
      shape).
 
 The seven CUDA kernels are built at first use from every
@@ -211,6 +236,10 @@ SERVICE_SCHEDULERS = ("greedy", "first_fit", "random")   # phase 10's table
 SERVICE_LANES = 8             # the server's lanes (max_lanes)
 SERVICE_BW = 32               # its batch_windows and fork cadence
 FLEET_REPLICAS = 4            # run_fleet's replicas (phase 10)
+FAMILY_MOE = "qwen2-moe-a2.7b"        # served at full width (phase 11)
+FAMILY_SSM = "mamba2-780m"            # served and trained at full width
+FAMILY_HYBRID = "jamba-1.5-large-398b"  # reduced: 398 B parameters at full
+SSM_CHECK_LEN = 640                   # the f32 check's full forward: 5 chunks
 
 
 PLUGIN = "smoke_pack_left"     # the fleet's external-family lane
@@ -333,6 +362,474 @@ def profile_run(torch, make_driver, label: str, n_windows: int) -> None:
     builds."""
     make_driver().run()                     # warm-up
     profile_call(torch, make_driver().run, f"{label}: {n_windows} windows")
+
+
+def families_phase(torch, dev, smi, reset_counts, counters, results,
+                   seed: int) -> dict:
+    """Phase 11: the MoE and SSD families (qwen2-moe-a2.7b and mamba2-780m
+    at full width, jamba-1.5-large-398b reduced). Returns the launch counts
+    by path and the phase's numbers; raises on any failed check."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.fused_ce import ops as ce_ops
+    from repro_torch.kernels.fused_ce.ref import fused_ce_ref
+    from repro_torch.models import attention, mamba, moe
+    from repro_torch.models import model as lm
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.train import optim
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.step import make_train_step
+
+    t_phase = time.time()
+    launches, nums = {}, {"card": smi}
+
+    def counts():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def timed_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.time() - t0) * 1e3, out
+
+    def tensors(tree):
+        if isinstance(tree, dict):
+            return [t for v in tree.values() for t in tensors(v)]
+        if isinstance(tree, (list, tuple)):
+            return [t for v in tree for t in tensors(v)]
+        return [tree]
+
+    def describe_params(cfg, params, t0):
+        ts = tensors(params)
+        n = sum(t.numel() for t in ts)
+        gb = sum(t.numel() * t.element_size() for t in ts) / 1e9
+        print(f"families: {cfg.name} at full width: {cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}, vocab {cfg.vocab_size} (padded "
+              f"{cfg.padded_vocab}); {n / 1e9:.4f} B parameters counted on "
+              f"the card (the config's param_count {cfg.param_count() / 1e9:.4f}"
+              f" B), {gb:.3f} GB {cfg.param_dtype}, initialised in "
+              f"{time.time() - t0:.1f}s")
+        return n
+
+    def serve_timed(cfg, engine, prompts, path):
+        engine.generate(prompts, 2)        # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        gen_ms, out = timed_ms(lambda: engine.generate(prompts, SERVE_GEN))
+        launches[path] = counts()
+        f_tc = fa_ops.flash_attention_cuda.launches_tc
+        peak = torch.cuda.max_memory_allocated(dev)
+        assert out.shape == (SERVE_B, SERVE_GEN) and out.dtype == torch.int32
+        assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
+        pre_ms = float(np.median([timed_ms(lambda: engine.generate(
+            prompts, 1))[0] for _ in range(3)]))
+        full_ms = float(np.median([gen_ms] + [timed_ms(
+            lambda: engine.generate(prompts, SERVE_GEN))[0]
+            for _ in range(2)]))
+        dec_ms = (full_ms - pre_ms) / (SERVE_GEN - 1)
+        row = dict(prefill_ms=pre_ms, decode_ms=dec_ms, generate_ms=full_ms,
+                   new_tokens_per_s=SERVE_B * SERVE_GEN / full_ms * 1e3,
+                   decode_tokens_per_s=SERVE_B / dec_ms * 1e3,
+                   peak_gib=peak / 2 ** 30)
+        print(f"families serve {cfg.name}: {SERVE_B} prompts x "
+              f"{SERVE_PROMPT} tokens, {SERVE_GEN} new tokens each: prefill "
+              f"{pre_ms:.3f} ms, decode {dec_ms:.3f} ms a step, generate "
+              f"{full_ms:.3f} ms (medians of 3), new tokens/s "
+              f"{row['new_tokens_per_s']:.2f} end to end, "
+              f"{row['decode_tokens_per_s']:.2f} in decode; peak "
+              f"{row['peak_gib']:.3f} GiB [{smi}]")
+        print(f"launches ({path} run): {launches[path]}; F through its "
+              f"tensor-core body: {f_tc}")
+        prof = profile_call(torch, lambda: engine.generate(prompts, 2),
+                            f"{cfg.name} prefill + 1 decode step", top=10)
+        row["busy_ms"] = sum(v[0] for v in prof.values()) / 1e3
+        return out, row, f_tc
+
+    def decode_vs_forward(params, cfg, toks, n_prompt, n_steps, cache_dtype):
+        """prefill on toks[:, :n_prompt], n_steps - 1 decode steps fed
+        from toks; (max abs difference from the full forward's logits at
+        those positions, argmax agreement, the forward's aux)."""
+        with torch.inference_mode():
+            full, aux = lm.forward(params, cfg, toks)
+            want = full[:, n_prompt - 1:n_prompt - 1 + n_steps]
+            del full
+            logits, cache = lm.prefill(params, cfg, toks[:, :n_prompt],
+                                       toks.shape[1], cache_dtype=cache_dtype)
+            outs = [logits]
+            for i in range(n_steps - 1):
+                logits, cache = lm.decode_step(
+                    params, cfg, toks[:, n_prompt + i:n_prompt + i + 1],
+                    cache, n_prompt + i)
+                outs.append(logits)
+            dec = torch.cat(outs, dim=1)
+        V = cfg.vocab_size
+        err = float((dec[..., :V] - want[..., :V]).abs().max())
+        agree = float((dec[..., :V].argmax(-1) == want[..., :V].argmax(-1))
+                      .float().mean())
+        return err, agree, float(aux)
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    print(f"families: memory held before the phase "
+          f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.3f} GiB")
+
+    # ---- qwen2-moe-a2.7b at full width and depth ----------------------
+    mcfg = dataclasses.replace(get_config(FAMILY_MOE),
+                               attention_impl="pallas")
+    t0 = time.time()
+    params = lm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    torch.cuda.synchronize()
+    nums["moe_params"] = describe_params(mcfg, params, t0)
+    T_pre = SERVE_B * SERVE_PROMPT
+    print(f"families: {mcfg.name} MoE capacity {moe.capacity(T_pre, mcfg)} "
+          f"a prefill ({T_pre} tokens, {mcfg.n_experts} experts top-"
+          f"{mcfg.moe_top_k}: {mcfg.n_experts * moe.capacity(T_pre, mcfg)} "
+          f"slots for {T_pre * mcfg.moe_top_k} assignments), "
+          f"{moe.capacity(SERVE_B, mcfg)} a decode step")
+    prompts = torch.randint(
+        0, mcfg.vocab_size, (SERVE_B, SERVE_PROMPT),
+        generator=torch.Generator(device=dev).manual_seed(seed + 1),
+        device=dev, dtype=torch.int32)
+    max_seq = SERVE_PROMPT + SERVE_GEN + 1
+
+    # F at this path's shape against its plain version, and its times
+    fshape = (SERVE_B, SERVE_PROMPT, mcfg.n_heads, mcfg.resolved_head_dim)
+    fg = torch.Generator(device=dev).manual_seed(seed + 5)
+    fq, fk, fv = (torch.randn(fshape, generator=fg, device=dev,
+                              dtype=torch.bfloat16) for _ in range(3))
+    f_scale = 1.0 / mcfg.resolved_head_dim ** 0.5
+    n_tc = fa_ops.flash_attention_cuda.launches_tc
+    got = fa_ops.flash_attention(fq, fk, fv, causal=True, scale=f_scale)
+    assert fa_ops.flash_attention_cuda.launches_tc == n_tc + 1
+    err = float((got.float() - attention_ref(
+        fq, fk, fv, causal=True, scale=f_scale).float()).abs().max())
+    assert err <= 2e-2, f"F at {fshape}: max abs err {err}"
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    Bq, Sq, Hq, Dq = fshape
+    f_row = dict(shape=list(fshape), dtype="bfloat16", max_abs_err=err,
+                 ms=time_ms(torch, lambda: fa_ops.flash_attention(
+                     fq, fk, fv, causal=True, scale=f_scale), 20),
+                 plain_ms=time_ms(torch, lambda: attention_ref(
+                     fq, fk, fv, causal=True, scale=f_scale), 5, warmup=1),
+                 library_ms=time_ms(torch, lambda: sdpa(
+                     fq.transpose(1, 2), fk.transpose(1, 2),
+                     fv.transpose(1, 2), is_causal=True, scale=f_scale), 20))
+    f_row["bound_ms"], f_row["bound_by"] = bound_ms(
+        nbytes(fq, fk, fv) + fq.numel() * 2,
+        4 * Bq * Hq * Dq * Sq * (Sq + 1) / 2, BF16_OPS_PER_S)
+    print(f"F flash_attention at {mcfg.name}'s prefill B={Bq} S={Sq} "
+          f"H={Hq} D={Dq} bf16 causal (tensor-core body): max abs err "
+          f"{err:.3g} (<= 2e-2); kernel {f_row['ms']:.4f} ms, plain "
+          f"{f_row['plain_ms']:.4f} ms, library {f_row['library_ms']:.4f} ms"
+          f" (scaled_dot_product_attention), bound {f_row['bound_ms']:.4f} "
+          f"ms ({f_row['bound_by']}) [{smi}]")
+    del fq, fk, fv, got
+
+    engine = ServingEngine(mcfg, params, max_seq)
+    out_k, nums["moe_serve"], f_tc = serve_timed(mcfg, engine, prompts,
+                                                 "serve_moe")
+    assert launches["serve_moe"]["flash_attention"] == mcfg.n_layers
+    assert f_tc == mcfg.n_layers, f"F's TC body launched {f_tc} times"
+    f_row["launches_per_prefill"] = launches["serve_moe"]["flash_attention"]
+    results["flash_attention"]["qwen2_moe_serve"] = f_row
+
+    # one MoE layer at the prefill shape, twice: bitwise equal
+    run = engine._run_params
+    layer = {n: w[0] for n, w in run["blocks"][0]["mlp"].items()}
+    h = torch.randn((SERVE_B, SERVE_PROMPT, mcfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed),
+                    dtype=torch.bfloat16)
+    with torch.inference_mode():
+        y1, a1 = moe.apply(layer, mcfg, h)
+        y2, a2 = moe.apply(layer, mcfg, h)
+    assert torch.equal(y1, y2) and torch.equal(a1, a2), "MoE not bitwise"
+    assert bool(torch.isfinite(y1.float()).all()) and bool(torch.isfinite(a1))
+    print(f"families: one MoE layer at the prefill shape {tuple(h.shape)} "
+          f"bf16, run twice: output and aux bitwise equal (aux "
+          f"{float(a1):.6f})")
+
+    # in bf16 the two attention paths differ by ~1e-2 relative; where a
+    # token's 4th and 5th router probabilities are that close its experts
+    # change, and with them its output outright. Counted at layer 0, the
+    # first place it can happen:
+    xla_cfg = dataclasses.replace(mcfg, attention_impl="xla")
+    with torch.inference_mode():
+        p0 = lm._layer(run["blocks"][0], 0)
+        x0, pos = lm._prefix(run, mcfg, prompts, None)
+        routes = []
+        for c in (mcfg, xla_cfg):
+            hh = rms_norm(x0, p0["norm_mixer"]["w"], c.norm_eps)
+            x1 = x0 + attention.apply(p0["mixer"], c, hh, pos)
+            hh = rms_norm(x1, p0["norm_mlp"]["w"], c.norm_eps)
+            routes.append(moe.route(hh.reshape(-1, c.d_model),
+                                    p0["mlp"]["router"], c)[1].sort(-1).values)
+    flips = float((routes[0] != routes[1]).any(-1).float().mean())
+    del run, layer, h, y1, y2, engine, p0, x0, x1, hh, routes
+    gc.collect()
+
+    # the same parameters and prompts through the plain einsum attention:
+    # bf16 generations (reported), then f32 ones, whose greedy tokens are
+    # held to agree
+    engine_x = ServingEngine(xla_cfg, params, max_seq)
+    engine_x.generate(prompts, 2)
+    xla_ms, out_x = timed_ms(lambda: engine_x.generate(prompts, SERVE_GEN))
+    del engine_x
+    agree16 = int((out_k == out_x).sum())
+    out32, rows = {}, {}
+    V = mcfg.vocab_size
+    for c in (mcfg, xla_cfg):
+        c = dataclasses.replace(c, dtype="float32")
+        eng = ServingEngine(c, params, max_seq)   # f32: casts nothing
+        out32[c.attention_impl] = eng.generate(prompts, SERVE_GEN)
+        del eng
+        with torch.inference_mode():
+            rows[c.attention_impl] = lm.prefill(
+                params, c, prompts, max_seq)[0][:, 0, 0, :V].float()
+    gc.collect()
+    for r in rows.values():
+        assert bool(torch.isfinite(r).all()), "non-finite logits"
+    a, b = rows["pallas"], rows["xla"]
+    first = out32["pallas"][:, 0].long()
+    gap = b.max(-1).values - b.gather(1, first[:, None])[:, 0]
+    rel32 = ((a - b).norm(dim=-1) / b.norm(dim=-1)).tolist()
+    agree32 = int((out32["pallas"] == out32["xla"]).sum())
+    n_tok = out_k.numel()
+    print(f"families serve {mcfg.name} xla: generate {xla_ms:.3f} ms (one "
+          f"run, bf16) [{smi}]; bf16: kernel and xla paths agree on "
+          f"{agree16} of {n_tok} tokens, layer 0 routes {flips:.4f} of the "
+          f"{T_pre} prompt tokens to other experts; f32: agree on {agree32} "
+          f"of {n_tok} tokens (>= 0.98), xla logit at the kernel path's "
+          f"first token {gap.tolist()} below its maximum (<= 0.05), prefill "
+          f"logits relative L2 kernel vs xla {rel32} (< 2e-2)")
+    assert agree32 >= 0.98 * n_tok, (agree32, n_tok)
+    assert bool((gap <= 0.05).all()), gap
+    assert max(rel32) < 2e-2, rel32
+    nums["moe_serve"].update(xla_generate_ms=xla_ms, bf16_tokens_agree=agree16,
+                             layer0_route_moved=flips,
+                             f32_tokens_agree=agree32,
+                             f32_first_token_gap=gap.tolist(),
+                             rel_l2_f32=rel32)
+    del rows, a, b, out32
+
+    # f32 compute, a loose capacity: 24-token prefill + 7 decode steps
+    # through the whole model against its full forward
+    fcfg = dataclasses.replace(mcfg, dtype="float32", capacity_factor=16.0)
+    toks = torch.randint(0, V, (2, 32), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             seed + 2))
+    err, agree_f, aux = decode_vs_forward(params, fcfg, toks, 24, 8,
+                                          torch.float32)
+    print(f"families {mcfg.name} f32, capacity_factor 16: prefill of 24 + 7 "
+          f"decode steps against the full forward: max abs {err:.3g} "
+          f"(< 2e-2), argmax agreement {agree_f:.4f} (> 0.98); aux {aux:.6f}"
+          f" (finite)")
+    assert err < 2e-2 and agree_f > 0.98, (err, agree_f)
+    assert np.isfinite(aux) and aux > 0, aux
+    nums["moe_decode_check"] = dict(max_abs=err, agree=agree_f, aux=aux)
+    del params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- mamba2-780m at full width: serve, check, train -----------------
+    scfg = get_config(FAMILY_SSM)
+    t0 = time.time()
+    params = lm.init_params(scfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    torch.cuda.synchronize()
+    nums["ssm_params"] = describe_params(scfg, params, t0)
+    prompts = torch.randint(
+        0, scfg.vocab_size, (SERVE_B, SERVE_PROMPT),
+        generator=torch.Generator(device=dev).manual_seed(seed + 1),
+        device=dev, dtype=torch.int32)
+    engine = ServingEngine(scfg, params, max_seq)
+    _, nums["ssm_serve"], _ = serve_timed(scfg, engine, prompts, "serve_ssm")
+    del engine
+    gc.collect()
+    # f32 compute: the prompts' 512 tokens (4 chunks of 128), then 31
+    # decode steps; the full forward runs over 640 tokens (5 chunks) and
+    # causality leaves its first 543 positions those of the 543-token
+    # sequence
+    tail = torch.randint(0, scfg.vocab_size,
+                         (SERVE_B, SSM_CHECK_LEN - SERVE_PROMPT), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             seed + 3), dtype=torch.int32)
+    toks = torch.cat([prompts, tail], dim=1)
+    err, agree_s, _ = decode_vs_forward(
+        params, dataclasses.replace(scfg, dtype="float32"), toks,
+        SERVE_PROMPT, SERVE_GEN, torch.float32)
+    print(f"families {scfg.name} f32: prefill of {SERVE_PROMPT} + "
+          f"{SERVE_GEN - 1} decode steps against the full forward over "
+          f"{SSM_CHECK_LEN} tokens: max abs {err:.3g} (< 2e-2), argmax "
+          f"agreement {agree_s:.4f} (> 0.98)")
+    assert err < 2e-2 and agree_s > 0.98, (err, agree_s)
+    nums["ssm_decode_check"] = dict(max_abs=err, agree=agree_s)
+    del toks, tail, prompts, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # at this shape the reference's decay form gives a NaN
+    # gradient at chunk 128, the port's masked exponent a finite one
+    Q, H = scfg.ssm_chunk, scfg.ssm_heads
+    dg = torch.Generator(device=dev).manual_seed(seed + 4)
+    dt_raw = torch.randn((TRAIN_B, Q, H), generator=dg, device=dev)
+    upstream = torch.randn((TRAIN_B, Q, Q, H), generator=dg, device=dev)
+    nan_counts = []
+    for form in ("reference", "port"):
+        dt = torch.nn.functional.softplus(dt_raw).requires_grad_()
+        cumq = torch.cumsum(dt * -np.e, dim=1)
+        if form == "port":
+            decay = mamba.intra_chunk_decay(cumq)
+        else:
+            ltri = torch.ones((Q, Q), dtype=torch.bool,
+                              device=dev).tril()[None, :, :, None]
+            decay = torch.where(ltri, torch.exp(cumq[:, :, None]
+                                                - cumq[:, None]), 0.0)
+        (decay * upstream).sum().backward()
+        nan_counts.append(int(torch.isnan(dt.grad).sum()))
+    print(f"families: the intra-chunk decay's gradient at chunk {Q} (B="
+          f"{TRAIN_B}, H={H}, A=-e, dt=softplus(normal)): NaN in "
+          f"{nan_counts[0]} of {dt.numel()} with the reference's "
+          f"where(exp) form, in {nan_counts[1]} with the masked exponent")
+    assert nan_counts[1] == 0
+    nums["decay_grad_nan"] = dict(reference=nan_counts[0],
+                                  port=nan_counts[1], of=dt.numel())
+    del dt_raw, upstream, dt, cumq, decay
+
+    # G at this path's shape against its plain version, and its times
+    tcfg = dataclasses.replace(scfg, chunked_ce=True)
+    gT, gd, gVp, gV = (TRAIN_B * TRAIN_SEQ, tcfg.d_model, tcfg.padded_vocab,
+                       tcfg.vocab_size)
+    gg = torch.Generator(device=dev).manual_seed(seed + 6)
+    gx = torch.randn((gT, gd), generator=gg, device=dev).bfloat16()
+    gw = (torch.randn((gVp, gd), generator=gg, device=dev) * 0.02).bfloat16()
+    glab = torch.randint(0, gV, (gT,), generator=gg, device=dev,
+                         dtype=torch.int32)
+    glab[::7] = -1
+    n_tc = ce_ops.fused_ce_cuda.launches_tc
+    nll_k, lse_k = ce_ops.fused_ce_with_lse(gx, gw, glab, gV)
+    assert ce_ops.fused_ce_cuda.launches_tc == n_tc + 1, "G: not the TC body"
+    nll_r, lse_r = fused_ce_ref(gx, gw, glab, gV)
+    err = max(float((nll_k - nll_r).abs().max()),
+              float((lse_k - lse_r).abs().max()))
+    assert err <= 2e-3, f"G at mamba2's shape: max abs err {err}"
+    fnl = torch.nn.functional
+    glab_l = glab.long()
+    g_row = dict(T=gT, d=gd, Vp=gVp, V=gV, dtype="bfloat16", max_abs_err=err,
+                 ms=time_ms(torch, lambda: ce_ops.fused_ce_with_lse(
+                     gx, gw, glab, gV), 5),
+                 plain_ms=time_ms(torch, lambda: fused_ce_ref(
+                     gx, gw, glab, gV), 3, warmup=1),
+                 library_ms=time_ms(torch, lambda: fnl.cross_entropy(
+                     fnl.linear(gx, gw[:gV]).float(), glab_l,
+                     reduction="none", ignore_index=-1), 5))
+    g_row["bound_ms"], g_row["bound_by"] = bound_ms(
+        nbytes(gx, gw, glab) + 2 * gT * 4, 2 * gT * gVp * gd, BF16_OPS_PER_S)
+    print(f"G fused_ce at {tcfg.name}'s training shape T={gT} d={gd} "
+          f"Vp={gVp} V={gV} bf16 (tensor-core body): max abs err {err:.3g} "
+          f"(<= 2e-3); kernel {g_row['ms']:.4f} ms, plain "
+          f"{g_row['plain_ms']:.4f} ms, library {g_row['library_ms']:.4f} ms"
+          f" (linear + cross_entropy), bound {g_row['bound_ms']:.4f} ms "
+          f"({g_row['bound_by']}) [{smi}]")
+    del gx, gw, glab, glab_l, nll_k, lse_k, nll_r, lse_r
+
+    # three training steps, chunked_ce (kernel G), full remat
+    t0 = time.time()
+    tparams = lm.init_params(tcfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    topt = optim.init_opt_state(tparams)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    print(f"families train: {tcfg.name} at full width, chunked_ce "
+          f"(ce_chunks {tcfg.ce_chunks}), remat {tcfg.remat_policy}, "
+          f"{tcfg.dtype} activations, SSD chunk {tcfg.ssm_chunk}; "
+          f"parameters and moments initialised in {time.time() - t0:.1f}s")
+    data = SyntheticLM(tcfg, TRAIN_B, TRAIN_SEQ, seed=0)
+    step_fn = make_train_step(tcfg, TrainConfig())
+
+    def train_step(i):
+        nonlocal tparams, topt
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.global_batch(i).items()}
+        tparams, topt, m = step_fn(tparams, topt, batch, None)
+        return float(m["loss"]), float(m["grad_norm"])
+
+    t0 = time.time()
+    hist = [train_step(0)]                 # warm-up
+    warm_s = time.time() - t0
+    reset_counts()
+    step_ms = []
+    for i in range(1, 1 + TRAIN_TIMED):
+        ms, lg = timed_ms(lambda: train_step(i))
+        step_ms.append(ms)
+        hist.append(lg)
+    launches["train_ssm"] = counts()
+    g_tc = ce_ops.fused_ce_cuda.launches_tc
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"launches (train_ssm run, {TRAIN_TIMED} steps): "
+          f"{launches['train_ssm']}; G through its tensor-core body: {g_tc}")
+    assert launches["train_ssm"]["fused_ce"] == TRAIN_TIMED
+    assert g_tc == TRAIN_TIMED, f"G's TC body launched {g_tc} times"
+    assert all(np.isfinite(v) for lg in hist for v in lg), hist
+    med = float(np.median(step_ms))
+    print(f"families train {tcfg.name} (loss, grad_norm) (warm-up + "
+          f"{TRAIN_TIMED}): {hist}; every gradient finite (a NaN or inf "
+          f"leaf would make the norm so)")
+    print(f"families train step: {step_ms} ms, median {med:.3f} ms for "
+          f"{gT} tokens (warm-up step {warm_s * 1e3:.1f} ms), tokens/s "
+          f"{gT / med * 1e3:.2f}, peak {peak / 2 ** 30:.3f} GiB [{smi}]")
+    prof = profile_call(torch, lambda: train_step(1 + TRAIN_TIMED),
+                        f"{tcfg.name} train step (4 x 512 tokens)", top=10)
+    g_row["launches_per_step"] = launches["train_ssm"]["fused_ce"] / TRAIN_TIMED
+    results["fused_ce"]["mamba2_train"] = g_row
+    nums["ssm_train"] = dict(step_ms=step_ms, median_ms=med,
+                             busy_ms=sum(v[0] for v in prof.values()) / 1e3,
+                             tokens_per_s=gT / med * 1e3,
+                             peak_gib=peak / 2 ** 30, losses=hist,
+                             warmup_ms=warm_s * 1e3)
+    del tparams, topt, step_fn, data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- jamba-1.5-large-398b reduced: SSD, dense, MoE and F together ----
+    jcfg = dataclasses.replace(reduced(get_config(FAMILY_HYBRID)),
+                               remat_policy="none", ssm_chunk=8,
+                               capacity_factor=16.0, attention_impl="pallas")
+    jparams = lm.init_params(jcfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    toks = torch.randint(0, jcfg.vocab_size, (2, 32), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             seed))
+    jshape = (2, 32, jcfg.n_heads, jcfg.resolved_head_dim)
+    xs = [torch.randn(jshape, generator=fg, device=dev) for _ in range(3)]
+    err_f = float((fa_ops.flash_attention(*xs, causal=True)
+                   - attention_ref(*xs, causal=True)).abs().max())
+    assert err_f <= 1e-5, f"F f32 at {jshape}: max abs err {err_f}"
+    reset_counts()
+    err, agree_j, aux = decode_vs_forward(jparams, jcfg, toks, 24, 8,
+                                          torch.float32)
+    launches["hybrid_reduced"] = counts()
+    print(f"families {jcfg.name} reduced ({jcfg.n_layers} layers "
+          f"{[m + '+' + f for m, f in jcfg.layer_pattern()]}, f32, chunk 8, "
+          f"capacity_factor 16): prefill of 24 + 7 decode steps against the "
+          f"full forward: max abs {err:.3g} (< 1e-3), argmax agreement "
+          f"{agree_j:.4f}, aux {aux:.6f}; F at its shape {jshape} f32 (SIMT "
+          f"body) max abs err {err_f:.3g} (<= 1e-5); launches "
+          f"{launches['hybrid_reduced']}")
+    assert err < 1e-3, err
+    assert launches["hybrid_reduced"]["flash_attention"] > 0
+    nums["hybrid_check"] = dict(max_abs=err, agree=agree_j, aux=aux)
+    del jparams, toks, xs
+    nums["phase_s"] = time.time() - t_phase
+    print(f"phase 11: {nums['phase_s']:.1f}s [{smi}]")
+    return {"launches": launches, "numbers": nums}
 
 
 def main(argv=None) -> int:
@@ -1928,7 +2425,15 @@ def main(argv=None) -> int:
     print(f"phase 10: {service['phase_s']:.1f}s (and the stack's pre-compile "
           f"in phase 4, {t_stack:.1f}s) [{smi}]")
 
-    # ---- 11. the kernel table ------------------------------------------
+    # ---- 11. the MoE and SSD families ------------------------------------
+    # earlier phases' tensors released first (qwen2-moe's f32 parameters
+    # alone are 57 GB); the phase prints what is still held
+    del windows, pw
+    families = families_phase(torch, dev, smi, reset_counts, counters,
+                              results, args.seed)
+    fam_launches = families["launches"]
+
+    # ---- 12. the kernel table ------------------------------------------
     meta = {
         "constraint_match": ("src/repro/kernels/constraint_match/kernel.py:76",),
         "placement_commit": ("src/repro/kernels/placement_commit/kernel.py:121",),
@@ -1949,7 +2454,8 @@ def main(argv=None) -> int:
                          + launches_serve[name] + launches_train[name]
                          + sum(v[name] for v in launches_stoch.values())
                          + launches_sfleet[name] + launches_service[name]
-                         + launches_run_fleet[name]),
+                         + launches_run_fleet[name]
+                         + sum(v[name] for v in fam_launches.values())),
             "launches_by_path": {"simulate": launches[name],
                                  "fleet": launches_fleet[name],
                                  **{f"simulate_{k}": v[name]
@@ -1958,12 +2464,15 @@ def main(argv=None) -> int:
                                  "service": launches_service[name],
                                  "run_fleet": launches_run_fleet[name],
                                  "serve": launches_serve[name],
-                                 "train": launches_train[name]},
+                                 "train": launches_train[name],
+                                 **{k: v[name]
+                                    for k, v in fam_launches.items()}},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **({k: r[k] for k in ("fleet", "forms", "parent_split",
-                                  "surrogate") if k in r}),
+                                  "surrogate", "qwen2_moe_serve",
+                                  "mamba2_train") if k in r}),
             **({k: r[k] for k in ("cluster", "latency_floor_ms") if k in r}),
             **({"body": G_TC_BODY, "launches_tc": g_tc}
                if name == "fused_ce" else {}),
@@ -1973,6 +2482,7 @@ def main(argv=None) -> int:
     print("stochastic schedulers at cell A: " + json.dumps(
         {"key_draw_ms": draw_ms, "by_scheduler": stoch_split}))
     print("service at cell A: " + json.dumps({**service, "card": smi}))
+    print("families: " + json.dumps(families["numbers"]))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

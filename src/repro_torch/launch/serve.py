@@ -8,6 +8,13 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
       --reduced --device cpu
 
+  # the SSD and MoE families (mamba2-780m has no attention layer, so
+  # --attention-impl is moot there):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
+      --batch 4 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
+      --reduced --device cpu
+
 Prints the reference CLI's two lines. Parameters and prompts are drawn
 from ``--seed`` with ``torch.Generator`` (not the reference's jax.random
 numbers).

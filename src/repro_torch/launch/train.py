@@ -10,6 +10,10 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
       --reduced --steps 200 --batch 4 --seq-len 256
 
+  # any of the ten architectures, e.g. the SSD and MoE families:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \
+      --reduced --steps 3 --device cpu
+
 Fault tolerance is always on: periodic async checkpoints, SIGTERM-safe
 preemption, optional simulator-driven fault injection (--inject-faults) and
 straggler logging. Prints the reference CLI's lines. Parameters are drawn

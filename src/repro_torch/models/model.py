@@ -1,6 +1,6 @@
-"""Layer-pattern compiler, the serving subset: any architecture whose
-pattern is attention mixers with dense (or no) MLPs, from a repeating
-``(mixer, mlp)`` pattern looped over its repeats.
+"""Layer-pattern compiler: builds any of the 10 architectures from a
+repeating ``(mixer, mlp)`` pattern (attention or Mamba-2 SSD mixers;
+dense, MoE or no MLPs), looped over its repeats.
 
 A copy of ``repro.models.model`` in PyTorch. Parameters keep the
 reference's tree, as plain nested dicts of tensors: ``embed`` (K, Vp, d),
@@ -19,8 +19,10 @@ functions a tree whose stacked leaves are lists of per-index tensors
 ``opt_state_from_numpy`` / ``opt_state_to_numpy`` carry the reference's
 optimizer state across.
 
-Mamba mixers and MoE MLPs wait for a later slice of the port (ROADMAP
-Queue 1) and raise ``NotImplementedError``.
+The cache is a tuple over pattern positions: ``{"k", "v"}`` (R, B, max_seq,
+KH, hd) at an attention position, ``{"ssm", "conv"}`` (R, B, H, P, N) and
+(R, B, K-1, CH) f32 at a Mamba position; batch is axis 1 in all four.
+:func:`decode_step` writes both kinds in place.
 """
 from __future__ import annotations
 
@@ -31,20 +33,11 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.fused_ce.ops import FusedCEMean
-from repro_torch.models import attention
+from repro_torch.models import attention, mamba, moe
 from repro_torch.models.layers import (ParamDef, init_from_defs, mlp_apply,
                                        mlp_param_defs, rms_norm, torch_dtype)
 
 Params = Dict[str, Any]
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    for mixer, mlp in cfg.layer_pattern():
-        if mixer != "attn" or mlp == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: the ({mixer}, {mlp}) block needs "
-                "models/mamba.py or models/moe.py, which wait for a later "
-                "slice of the port (ROADMAP Queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -57,10 +50,12 @@ def _block_defs(cfg: ModelConfig, mixer: str, mlp: str
     out: Dict[str, Dict[str, ParamDef]] = {
         "norm_mixer": {"w": ParamDef((d,), ("embed",), init="ones")},
     }
-    out["mixer"] = attention.param_defs(cfg)
+    out["mixer"] = (attention.param_defs(cfg) if mixer == "attn"
+                    else mamba.param_defs(cfg))
     if mlp != "none":
         out["norm_mlp"] = {"w": ParamDef((d,), ("embed",), init="ones")}
-        out["mlp"] = mlp_param_defs(cfg)
+        out["mlp"] = (mlp_param_defs(cfg) if mlp == "dense"
+                      else moe.param_defs(cfg))
     return out
 
 
@@ -72,7 +67,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ones), in ``cfg.param_dtype``. The numbers differ from the reference's
     ``jax.random`` draws; tests carry weights across with
     :func:`params_from_numpy`."""
-    _check_supported(cfg)
     dtype = torch_dtype(cfg.param_dtype)
     device = generator.device if device is None else torch.device(device)
     R, vp = cfg.n_repeats, cfg.padded_vocab
@@ -114,7 +108,6 @@ def params_from_numpy(cfg: ModelConfig, tree: Params, device=None) -> Params:
     """The reference's parameter pytree as numpy arrays -> the port's
     parameters on ``device``, key for key, values and dtypes unchanged.
     Raises on a missing or extra key or a wrong shape."""
-    _check_supported(cfg)
     device = torch.device("cpu" if device is None else device)
 
     def conv(want, got, path):
@@ -167,19 +160,38 @@ def opt_state_to_numpy(state):
                          for t in state])
 
 
+#: the leaves that the reference casts to the activation dtype wherever it
+#: reads them, by block kind (``conv_b`` too: every use casts it)
+CAST_AT_USE = {
+    "attn": ("wq", "wk", "wv", "wo"),
+    "mamba": ("in_proj", "out_proj", "conv_w", "conv_b"),
+    "dense": ("wi", "wo"),
+    "moe": ("shared_wi", "shared_wo"),
+}
+
+
 def activation_weights(params: Params, cfg: ModelConfig) -> Params:
-    """``params`` with every matrix that the forward casts at use
-    (``.to(x.dtype)``: the attention and MLP projections) cast once to
-    ``cfg.dtype``; norms and the embedding stay as they are. The forward
-    gives the same numbers from either tree; this one spares the copy each
-    use makes (every projection, every step) for the cost of holding it."""
+    """``params`` with every leaf that the reference casts to the
+    activation dtype at each use (:data:`CAST_AT_USE`: the attention and
+    dense-MLP projections, the SSD mixer's ``in_proj``, ``out_proj``,
+    ``conv_w`` and ``conv_b``, the shared experts' ``shared_wi`` and
+    ``shared_wo``) cast once to ``cfg.dtype``. Everything else stays as it
+    is: the MoE ``router`` and ``shared_gate`` and the SSD's ``A_log``,
+    ``D`` and ``dt_bias`` (read in f32), the norms and the embedding, and
+    the MoE expert stacks ``wi``/``wo`` (cast at use, but a second copy of
+    them would not fit beside qwen2-moe's f32 parameters on an 80 GB card).
+    The forward gives the same numbers from either tree; this one spares
+    the copy each use makes for the cost of holding it."""
     dt = torch_dtype(cfg.dtype)
     out = dict(params)
-    out["blocks"] = [
-        {g: ({n: (w.to(dt) if w.dim() == 3 else w) for n, w in grp.items()}
-             if g in ("mixer", "mlp") else grp)
-         for g, grp in pos.items()}
-        for pos in params["blocks"]]
+    blocks = []
+    for pos, (mixer, mlp) in zip(params["blocks"], cfg.layer_pattern()):
+        kinds = {"mixer": mixer, "mlp": mlp}
+        blocks.append({
+            g: ({n: (w.to(dt) if n in CAST_AT_USE[kinds[g]] else w)
+                 for n, w in grp.items()} if g in kinds else grp)
+            for g, grp in pos.items()})
+    out["blocks"] = blocks
     return out
 
 
@@ -226,18 +238,25 @@ def logits_from_hidden(params: Params, cfg: ModelConfig,
     return logits
 
 
-def _mlp_residual(cfg, pos_params, mlp: str, x):
-    """The block's second half: x + mlp(norm(x)), or x without an MLP."""
+def _mlp_residual(cfg, pos_params, mlp: str, x, aux):
+    """The block's second half: (x + mlp(norm(x)), aux plus the MoE's
+    load-balancing loss), or (x, aux) without an MLP."""
     if mlp == "none":
-        return x
+        return x, aux
     h = rms_norm(x, pos_params["norm_mlp"]["w"], cfg.norm_eps)
-    return x + mlp_apply(pos_params["mlp"], cfg, h)
+    if mlp == "dense":
+        return x + mlp_apply(pos_params["mlp"], cfg, h), aux
+    out, a = moe.apply(pos_params["mlp"], cfg, h)
+    return x + out, aux + a
 
 
 def _apply_block(cfg, pos_params, mixer: str, mlp: str, x, positions, aux):
     h = rms_norm(x, pos_params["norm_mixer"]["w"], cfg.norm_eps)
-    x = x + attention.apply(pos_params["mixer"], cfg, h, positions)
-    return _mlp_residual(cfg, pos_params, mlp, x), aux
+    if mixer == "attn":
+        x = x + attention.apply(pos_params["mixer"], cfg, h, positions)
+    else:
+        x = x + mamba.apply(pos_params["mixer"], cfg, h)
+    return _mlp_residual(cfg, pos_params, mlp, x, aux)
 
 
 def _prefix(params, cfg, tokens, vision_embeds):
@@ -284,7 +303,6 @@ def hidden_states(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """forward() up to (but not including) the logit projection. Each
     repeat of the pattern runs under ``cfg.remat_policy``, as the
     reference's scan body does."""
-    _check_supported(cfg)
     x, positions = _prefix(params, cfg, tokens, vision_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     pattern = cfg.layer_pattern()
@@ -434,13 +452,24 @@ def loss_fn(params: Params, cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> Tuple[Any, ...]:
-    """One ``{"k", "v"}`` dict per pattern position, each (R, batch,
-    max_seq, KH, hd)."""
-    _check_supported(cfg)
-    shape = (cfg.n_repeats, batch, max_seq, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return tuple({n: torch.zeros(shape, dtype=dtype, device=device)
-                  for n in ("k", "v")} for _ in cfg.layer_pattern())
+    """One dict per pattern position, every leaf stacked over the R
+    repeats: ``{"k", "v"}`` (R, batch, max_seq, KH, hd) in ``dtype`` at an
+    attention position, ``{"ssm", "conv"}`` f32 zeros at a Mamba position
+    (real tensors, since decode writes them in place)."""
+    R = cfg.n_repeats
+    cache = []
+    for mixer, _ in cfg.layer_pattern():
+        if mixer == "attn":
+            shape = (R, batch, max_seq, cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+            cache.append({n: torch.zeros(shape, dtype=dtype, device=device)
+                          for n in ("k", "v")})
+        else:
+            cache.append({n: torch.zeros((R,) + t.shape, dtype=t.dtype,
+                                         device=device)
+                          for n, t in mamba.init_state(cfg, batch,
+                                                       "meta").items()})
+    return tuple(cache)
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -449,10 +478,9 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """One new token per sequence against a filled cache.
 
     tokens: (B, 1) or (B, 1, K); cache_len: int (tokens in the cache).
-    Writes the new k/v into ``cache`` in place and returns (logits
-    (B, 1, K, Vp), cache).
+    Writes the new k/v and SSM states into ``cache`` in place and returns
+    (logits (B, 1, K, Vp), cache).
     """
-    _check_supported(cfg)
     x = embed_tokens(params, cfg, tokens)
     pattern = cfg.layer_pattern()
     for r in range(cfg.n_repeats):
@@ -460,8 +488,13 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             p = _layer(params["blocks"][pos], r)
             h = rms_norm(x, p["norm_mixer"]["w"], cfg.norm_eps)
             c = {n: t[r] for n, t in cache[pos].items()}
-            out, _ = attention.decode(p["mixer"], cfg, h, c, cache_len)
-            x = _mlp_residual(cfg, p, mlp, x + out)
+            if mixer == "attn":
+                out, _ = attention.decode(p["mixer"], cfg, h, c, cache_len)
+            else:
+                out, new = mamba.decode(p["mixer"], cfg, h, c)
+                for n, t in new.items():
+                    c[n].copy_(t)
+            x, _ = _mlp_residual(cfg, p, mlp, x + out, 0.0)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_from_hidden(params, cfg, x), cache
 
@@ -471,7 +504,6 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Tuple[Any, ...]]:
     """Run the prompt through the model, returning last-position logits and
     a cache sized ``max_seq`` ready for decode_step."""
-    _check_supported(cfg)
     x, positions = _prefix(params, cfg, tokens, vision_embeds)
     B = x.shape[0]
     cache = init_cache(cfg, B, max_seq, cache_dtype, x.device)
@@ -480,11 +512,14 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         for pos, (mixer, mlp) in enumerate(pattern):
             p = _layer(params["blocks"][pos], r)
             h = rms_norm(x, p["norm_mixer"]["w"], cfg.norm_eps)
-            q_out, kv = _attn_prefill(p["mixer"], cfg, h, positions,
-                                      max_seq, cache_dtype)
-            for n in ("k", "v"):
-                cache[pos][n][r] = kv[n]
-            x = _mlp_residual(cfg, p, mlp, x + q_out)
+            if mixer == "attn":
+                out, st = _attn_prefill(p["mixer"], cfg, h, positions,
+                                        max_seq, cache_dtype)
+            else:
+                out, st = mamba.apply(p["mixer"], cfg, h, return_state=True)
+            for n, t in st.items():
+                cache[pos][n][r] = t
+            x, _ = _mlp_residual(cfg, p, mlp, x + out, 0.0)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_from_hidden(params, cfg, x[:, -1:]), cache
 

@@ -24,7 +24,8 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int):
                                  vision_embeds=vision_embeds)
         # batch-microbatched prefill: activation transients / M. Chunk m
         # takes the interleaved rows m::M, as in the reference; the merge
-        # puts each chunk's rows back in their places.
+        # puts each chunk's rows back in their places (batch is axis 1 of
+        # every cache leaf: k/v, and the SSM and conv states).
         logits = caches = None
         for m in range(M):
             vis = vision_embeds[m::M] if vision_embeds is not None else None
@@ -63,11 +64,12 @@ def sample_greedy(logits: torch.Tensor) -> torch.Tensor:
 class ServingEngine:
     """Minimal batched engine: submit prompts, generate N tokens greedily.
 
-    The engine holds ``params`` and, beside them, the projection matrices
-    cast once to the activation dtype (``model.activation_weights``): the
-    same numbers as casting at each use, without the per-step copies; with
-    f32 parameters and bf16 activations it costs half the projections'
-    f32 size in memory.
+    The engine holds ``params`` and, beside them, the leaves that each use
+    casts to the activation dtype (the projections; see
+    ``model.activation_weights``) cast once: the same numbers as casting at
+    each use, without the per-step copies; with f32 parameters and bf16
+    activations it costs half those leaves' f32 size in memory. The MoE
+    expert stacks stay f32 and are cast at each use.
     """
 
     def __init__(self, cfg: ModelConfig, params, max_seq: int):

@@ -47,7 +47,8 @@ def test_port_imports_with_jax_and_reference_blocked():
             "repro_torch.launch.whatif, repro_torch.scenarios, "
             "repro_torch.scenarios.batch, repro_torch.sched.table, "
             "repro_torch.kernels._build, repro_torch.configs, "
-            "repro_torch.models.model, repro_torch.serve.engine, "
+            "repro_torch.models.model, repro_torch.models.moe, "
+            "repro_torch.models.mamba, repro_torch.serve.engine, "
             "repro_torch.launch.serve, "
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.kernels.fused_ce.ops, repro_torch.train.step, "

@@ -266,13 +266,3 @@ def test_activation_weights_give_the_same_numbers():
     toks = torch.from_numpy(_tokens(8, cfg, S))
     assert torch.equal(model.forward(p, cfg, toks)[0],
                        model.forward(run, cfg, toks)[0])
-
-
-@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-1.5-large-398b",
-                                  "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"])
-def test_moe_and_mamba_archs_raise(arch):
-    cfg = configs.reduced(configs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        model.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        model.init_cache(cfg, 1, 8)
