@@ -162,11 +162,25 @@ Phases, each printing its own lines:
      pallas) prefill plus 7 decode steps within 1e-3 of its full forward;
      prefill, decode, step times, tokens/s, peak memory and a profile of
      each path, printed beside the card's name and power limit;
-  12. a ``kernels:`` status line, phase 6's, phase 10's and phase 11's
-     numbers as JSON lines, and the JSON kernel table (seven kernels,
-     launches by path; F's body and tensor-core launches, F at qwen2-moe's
-     and G at mamba2's shapes, B and D's cluster size; E's surrogate
-     shape).
+  12. the mesh-sharded fleet and the full cell: phase 5's 8 lanes, trace
+     and windows through ``ScenarioFleet(mesh=fleet_mesh(1))``, a world of
+     1 over NCCL (the group destroyed before the phase ends); every stats
+     column, state field and ``report()`` bitwise phase 5's unsharded
+     (switchless) fleet; launch counts reset just before and read just
+     after (A, B in mode 'both' and C once a window, D never, E as in
+     phase 5); a sharded snapshot restored into an unsharded fleet,
+     bitwise; windows/s and lane-windows/s beside phase 5's; then
+     ``configs/agocs_full_cell`` (12,500 nodes, 262,144 task slots, E =
+     8,192) at the path's ``sched_batch`` of 1,024: node ADDs streamed
+     over two windows, 2,048 tasks, a 2,000-node removal and
+     ``evict_invalid``, a resync, the invariants, against the same windows
+     through the plain versions on the card (state bitwise, stats bitwise
+     but the variances, within rtol 2.5e-7; no kernel launched there);
+  13. a ``kernels:`` status line, phase 6's, phase 10's, phase 11's and
+     phase 12's numbers as JSON lines, and the JSON kernel table (seven
+     kernels, launches by path; F's body and tensor-core launches, F at
+     qwen2-moe's and G at mamba2's shapes, B and D's cluster size; E's
+     surrogate shape).
 
 The seven CUDA kernels are built at first use from every
 ``src/repro_torch/csrc/*.cu`` (one nvcc per source, all started together)
@@ -832,6 +846,226 @@ def families_phase(torch, dev, smi, reset_counts, counters, results,
     return {"launches": launches, "numbers": nums}
 
 
+class plain_on_card:
+    """The engine's four kernel entry points (A, B, C, E) replaced by their
+    plain PyTorch versions, run on the card's own tensors: the ops' CPU
+    branch, whatever the device. No kernel launches inside."""
+
+    def __init__(self, torch):
+        from repro_torch.core import engine, stats
+        from repro_torch.sched import base, commit
+        self.torch = torch
+        self.sites = [(base, "constraint_match", self._match),
+                      (commit, "placement_commit", self._commit),
+                      (stats, "window_reductions", self._reductions),
+                      (engine, "segment_usage_lanes", self._usage)]
+
+    def __enter__(self):
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name, _ in self.sites]
+        for mod, name, fn in self.sites:
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def _match(self, *args):
+        from repro_torch.kernels.constraint_match.ref import (
+            constraint_match_ref)
+        if args[0].dim() == 2:
+            return constraint_match_ref(*args)
+        return self.torch.stack([constraint_match_ref(*[x[b] for x in args])
+                                 for b in range(args[0].shape[0])])
+
+    def _commit(self, pref, req, base_ok, valid, total, denom, reserved0,
+                dynamic_bestfit=False, *, return_tally=False):
+        from repro_torch.kernels.placement_commit.ref import (
+            placement_commit_ref)
+        args = (pref, req, base_ok, valid, total, denom, reserved0)
+        if pref.dim() == 2:
+            out = placement_commit_ref(*args, dynamic_bestfit)
+        else:
+            per_lane = isinstance(dynamic_bestfit, self.torch.Tensor)
+            lanes = [placement_commit_ref(
+                *[x[b if x.shape[0] > 1 else 0] for x in args],
+                dynamic_bestfit[b] if per_lane else dynamic_bestfit)
+                for b in range(max(x.shape[0] for x in args))]
+            out = tuple(self.torch.stack(f) for f in zip(*lanes))
+        return out if return_tally else out[0]
+
+    def _reductions(self, *args):
+        from repro_torch.kernels.window_stats.ref import (
+            WindowReductions, window_reductions_ref)
+        if args[0].dim() == 1:
+            return window_reductions_ref(*args)
+        lanes = [window_reductions_ref(*[x[b] for x in args])
+                 for b in range(args[0].shape[0])]
+        return WindowReductions(*[self.torch.stack(f) for f in zip(*lanes)])
+
+    def _usage(self, task_node, values, mask, n_nodes):
+        from repro_torch.kernels.segment_usage.ref import (
+            segment_usage_lanes_ref)
+        return segment_usage_lanes_ref(task_node, values, mask, n_nodes)
+
+
+def full_cell_windows(cfg, n_tasks: int, seed: int):
+    """The full cell's four windows (the shape of
+    ``tests/test_torch_full_cell.py``'s): 12,500 node ADDs streamed over
+    two windows (E = 8,192), a task wave, then 2,000 node removals that
+    strand placed tasks. Capacities are multiples of 1/128 and requests of
+    1/1024 in the test's ranges, so every sum is exact in any order."""
+    from repro_torch.core.events import (EventKind, HostEvent, pack_window,
+                                         stack_windows)
+    r = np.random.default_rng(seed)
+    N, E = cfg.max_nodes, cfg.max_events_per_window
+
+    def node(i):
+        return HostEvent(0, EventKind.ADD_NODE, i,
+                         a=(float(r.integers(51, 129)) / 128,
+                            float(r.integers(51, 129)) / 128, 1.0))
+
+    def req():
+        return float(r.integers(2, 21)) / 1024
+
+    wins = [[node(i) for i in range(E)], [node(i) for i in range(E, N)],
+            [HostEvent(2, EventKind.ADD_TASK, t, a=(req(), req(), 0.0),
+                       prio=int(r.integers(0, 12))) for t in range(n_tasks)],
+            [HostEvent(3, EventKind.REMOVE_NODE, i) for i in range(2_000)]]
+    return stack_windows([pack_window(cfg, e, i)
+                          for i, e in enumerate(wins)])
+
+
+def sharded_and_full_cell_phase(torch, dev, smi, reset_counts, counters,
+                                fcfg, fleet_ws, specs, phase5, sched_batch):
+    """Phase 12: phase 5's fleet through ``ScenarioFleet(mesh=fleet_mesh(1))``
+    (a world of 1 over NCCL), held bitwise to phase 5's unsharded fleet, a
+    sharded snapshot restored into an unsharded fleet; then the full cell at
+    the path's ``sched_batch`` against the plain versions on the card.
+    Returns (sharded launches, full-cell launches, numbers)."""
+    import torch.distributed as dist
+    from repro_torch.configs import agocs_full_cell
+    from repro_torch.core import engine
+    from repro_torch.core.events import EventKind, window_to_torch
+    from repro_torch.core.state import (drop, init_state, lift,
+                                        state_to_numpy, validate_invariants)
+    from repro_torch.kernels.placement_commit import ops as pc_ops
+    from repro_torch.scenarios import ScenarioFleet, fleet_mesh
+    from repro_torch.sched import get_scheduler
+
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    nums = {"card": smi}
+    mesh = fleet_mesh(1)
+    try:
+        assert dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+        reset_counts()
+        fleet = ScenarioFleet(fcfg, iter(fleet_ws), specs, batch_windows=32,
+                              mesh=mesh, device=dev)
+        t0 = time.time()
+        fleet.run()
+        wall = time.time() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        both = pc_ops.placement_commit_cuda.launches_both
+        frame, state = fleet.stats_frame(), state_to_numpy(fleet.state)
+        for k, v in phase5["frame"].items():
+            assert np.array_equal(frame[k], v), f"sharded stats {k}"
+            assert frame[k].dtype == v.dtype, k
+        for f, v in phase5["state"].items():
+            assert np.array_equal(state[f], v), f"sharded state {f}"
+        assert fleet.report() == phase5["report"], "sharded report"
+        n_w = fleet.windows_done
+        print(f"sharded fleet (mesh 1 over NCCL, {fleet.n_lanes} lanes): "
+              f"every stats column, state field and the report bitwise "
+              f"phase 5's switchless fleet; launches {launches}, "
+              f"B in mode 'both' {both}")
+        assert launches["constraint_match"] == n_w, launches
+        assert launches["placement_commit"] == both == n_w, launches
+        assert launches["window_stats"] == n_w, launches
+        assert launches["sched_commit"] == 0, launches
+        assert launches["segment_usage"] == \
+            phase5["launches"]["segment_usage"], launches
+        with tempfile.TemporaryDirectory() as d:
+            path = str(Path(d) / "sharded.npz")
+            fleet.save(path)
+            back = ScenarioFleet(fcfg, iter(()), specs, device=dev)
+            back.restore(path)
+            for f, v in state_to_numpy(back.state).items():
+                assert np.array_equal(v, phase5["state"][f]), \
+                    f"restored {f}"
+        print("sharded snapshot restored into an unsharded fleet: bitwise")
+        nums.update(sharded_windows_per_s=n_w / wall,
+                    sharded_lane_windows_per_s=n_w * fleet.n_lanes / wall,
+                    phase5_windows_per_s=n_w / phase5["wall"],
+                    phase5_lane_windows_per_s=n_w * fleet.n_lanes
+                    / phase5["wall"])
+        print(f"sharded fleet: {n_w} windows in {wall:.3f}s -> "
+              f"{nums['sharded_windows_per_s']:.2f} windows/s, "
+              f"{nums['sharded_lane_windows_per_s']:.2f} lane-windows/s "
+              f"(phase 5's unsharded fleet: "
+              f"{nums['phase5_windows_per_s']:.2f} windows/s, "
+              f"{nums['phase5_lane_windows_per_s']:.2f} lane-windows/s) "
+              f"[{smi}]")
+        del fleet, back
+    finally:
+        dist.destroy_process_group()
+
+    # the full cell at the path's sched_batch, kernels against plain
+    fc = dataclasses.replace(agocs_full_cell.CONFIG, sched_batch=sched_batch)
+    ws = window_to_torch(full_cell_windows(fc, 2 * sched_batch, 0), dev)
+    adds = (ws.kind == EventKind.ADD_NODE).sum(-1).tolist()
+    assert adds[:2] == [fc.max_events_per_window,
+                        fc.max_nodes - fc.max_events_per_window], adds
+    runs = {}
+    for label in ("kernels", "plain"):
+        reset_counts()
+        t0 = time.time()
+        if label == "plain":
+            with plain_on_card(torch):
+                st, rows = engine.run_windows(init_state(fc, dev), ws, fc,
+                                              get_scheduler("greedy"), 0)
+                st = drop(engine.recompute_accounting(lift(st), fc))
+        else:
+            st, rows = engine.run_windows(init_state(fc, dev), ws, fc,
+                                          get_scheduler("greedy"), 0)
+            st = drop(engine.recompute_accounting(lift(st), fc))
+        torch.cuda.synchronize()
+        runs[label] = (st, rows, time.time() - t0,
+                       {name: fn.launches for name, fn in counters.items()})
+    (sk, rk, tk, lk), (sp, rp, tp, lp) = runs["kernels"], runs["plain"]
+    assert not any(lp.values()), f"the plain run launched a kernel: {lp}"
+    for f in sk._fields:
+        assert torch.equal(getattr(sk, f), getattr(sp, f)), f"full cell {f}"
+    for k in rp:
+        a, b = rk[k].cpu().numpy(), rp[k].cpu().numpy()
+        if k in ("util_balance_var", "reserved_balance_var"):
+            assert np.allclose(a, b, rtol=ULP_RTOL, atol=0), (k, a, b)
+        else:
+            assert np.array_equal(a, b), f"full cell stats {k}"
+    problems = validate_invariants(sk, fc)
+    assert not problems, problems
+    n_active = int(sk.node_active.sum())
+    assert n_active == fc.max_nodes - 2_000, n_active
+    assert int(rk["evictions"][-1]) > 0 and int(rk["placements"][-1]) > 0
+    for name in ("constraint_match", "placement_commit", "window_stats",
+                 "segment_usage"):
+        assert lk[name] > 0, lk
+    print(f"full cell (N={fc.max_nodes}, T={fc.max_tasks}, E="
+          f"{fc.max_events_per_window}, sched_batch {fc.sched_batch}): node "
+          f"ADDs streamed {adds[:2]}, {int(rk['placements'][-1])} placed, "
+          f"{int(rk['evictions'][-1])} evicted by the 2,000-node removal, "
+          f"{n_active} nodes active, invariants OK; state bitwise and stats "
+          f"bitwise (variances within rtol {ULP_RTOL}) against the plain "
+          f"versions on the card; kernels {tk:.2f}s, plain {tp:.2f}s; "
+          f"launches {lk}")
+    nums.update(full_cell_kernels_s=tk, full_cell_plain_s=tp,
+                phase_s=time.time() - t_phase)
+    print(f"phase 12: {nums['phase_s']:.1f}s [{smi}]")
+    return launches, lk, nums
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--jobs", type=int, default=16_000)
@@ -874,7 +1108,8 @@ def main(argv=None) -> int:
     from repro_torch.core.events import stack_windows, window_to_torch
     from repro_torch.core.precompile import precompile_stream, verify_stack
     from repro_torch.core.snapshot import save_snapshot
-    from repro_torch.core.state import SimState, lane
+    from repro_torch.core.state import SimState, lane, state_to_numpy
+    from repro_torch.scenarios import fleet_mesh
     from repro_torch.sched import PROPOSERS, base_pass, get_scheduler
     from repro_torch.launch import whatif
     from repro_torch.launch.simulate import summary_row
@@ -939,6 +1174,7 @@ def main(argv=None) -> int:
             fn.launches = 0
         ce_ops.fused_ce_cuda.launches_tc = 0    # G's tensor-core body
         fa_ops.flash_attention_cuda.launches_tc = 0  # F's
+        pc_ops.placement_commit_cuda.launches_both = 0   # B's per-lane mode
 
     # ---- 3. kernels against their plain versions, cell-A shapes -------
     # A: constraint_match
@@ -1489,6 +1725,9 @@ def main(argv=None) -> int:
         assert np.array_equal(fsf[k][:, 0], v), f"lane 0 stats {k}"
     print(f"fleet lane 0 == Simulation over the same {FLEET_WINDOWS} "
           "windows: state and stats bitwise")
+    # what phase 12's sharded fleet is held to, kept on the host
+    phase5 = {"frame": fsf, "state": state_to_numpy(fstate),
+              "report": report, "launches": launches_fleet, "wall": fwall}
     del fleet, fstate, lane0, state0
     prof_fws = fleet_ws[:PROFILE_WINDOWS]
     profile_run(torch, lambda: ScenarioFleet(
@@ -2433,7 +2672,12 @@ def main(argv=None) -> int:
                               results, args.seed)
     fam_launches = families["launches"]
 
-    # ---- 12. the kernel table ------------------------------------------
+    # ---- 12. the sharded fleet over NCCL and the full cell --------------
+    launches_sharded, launches_full, sharded = sharded_and_full_cell_phase(
+        torch, dev, smi, reset_counts, counters, fcfg, fleet_ws, specs,
+        phase5, cfg.sched_batch)
+
+    # ---- 13. the kernel table ------------------------------------------
     meta = {
         "constraint_match": ("src/repro/kernels/constraint_match/kernel.py:76",),
         "placement_commit": ("src/repro/kernels/placement_commit/kernel.py:121",),
@@ -2455,7 +2699,8 @@ def main(argv=None) -> int:
                          + sum(v[name] for v in launches_stoch.values())
                          + launches_sfleet[name] + launches_service[name]
                          + launches_run_fleet[name]
-                         + sum(v[name] for v in fam_launches.values())),
+                         + sum(v[name] for v in fam_launches.values())
+                         + launches_sharded[name] + launches_full[name]),
             "launches_by_path": {"simulate": launches[name],
                                  "fleet": launches_fleet[name],
                                  **{f"simulate_{k}": v[name]
@@ -2466,7 +2711,9 @@ def main(argv=None) -> int:
                                  "serve": launches_serve[name],
                                  "train": launches_train[name],
                                  **{k: v[name]
-                                    for k, v in fam_launches.items()}},
+                                    for k, v in fam_launches.items()},
+                                 "fleet_sharded": launches_sharded[name],
+                                 "full_cell": launches_full[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -2483,6 +2730,7 @@ def main(argv=None) -> int:
         {"key_draw_ms": draw_ms, "by_scheduler": stoch_split}))
     print("service at cell A: " + json.dumps({**service, "card": smi}))
     print("families: " + json.dumps(families["numbers"]))
+    print("sharded fleet and full cell: " + json.dumps(sharded))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

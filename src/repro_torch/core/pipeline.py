@@ -74,7 +74,9 @@ class WindowPrefetcher:
     The source may yield single numpy windows (staged here into batches of
     ``batch_windows``) or pre-stacked (W, ...) batches — e.g. straight from
     ``core.precompile.replay_windows`` — which skip the staging ring; the
-    consumer dequeues device-resident batches.
+    consumer dequeues device-resident batches. ``buffer_occupancy()`` is
+    the producer/consumer ledger of events, guarded by a lock (the fill
+    thread writes one side, the consumer the other).
     """
 
     def __init__(self, cfg: SimConfig, window_iter: Iterator[EventWindow],
@@ -90,10 +92,28 @@ class WindowPrefetcher:
         self._src = window_iter
         self._done = object()
         self._error: Optional[BaseException] = None
+        self._lock = threading.Lock()
+        self._events_in = 0       # staged into the buffer (fill thread)
+        self._events_out = 0      # handed to the driver (consumer)
         self._thread = threading.Thread(target=self._fill, daemon=True)
         self._thread.start()
 
+    @property
+    def events_buffered(self) -> int:
+        """Cumulative events staged into the buffer."""
+        with self._lock:
+            return self._events_in
+
+    def buffer_occupancy(self) -> Dict[str, int]:
+        """A consistent snapshot of the producer/consumer ledger."""
+        with self._lock:
+            return {"events_in_buffer": self._events_in - self._events_out,
+                    "batches_in_buffer": self._q.qsize(),
+                    "events_parsed": self._events_in,
+                    "events_consumed": self._events_out}
+
     def _put(self, host: EventWindow, ring=None, slot=None):
+        n = int(host.n_valid.sum())
         if self._cuda:
             with torch.cuda.stream(self._stream):
                 dev = EventWindow(*[t.to(self.device, non_blocking=True)
@@ -105,7 +125,9 @@ class WindowPrefetcher:
         else:
             # the ring slot is reused, so the batch gets its own storage
             dev, copied = EventWindow(*[t.clone() for t in host]), None
-        self._q.put((dev, copied))
+        with self._lock:
+            self._events_in += n
+        self._q.put((dev, copied, n))
 
     def _fill(self):
         batch: List[EventWindow] = []
@@ -151,7 +173,9 @@ class WindowPrefetcher:
                 if self._error is not None:
                     raise self._error
                 return
-            dev, copied = item
+            dev, copied, n = item
+            with self._lock:
+                self._events_out += n
             if copied is not None:
                 stream = torch.cuda.current_stream(self.device)
                 stream.wait_event(copied)
@@ -183,6 +207,11 @@ class WindowedDriver:
     oldest, and a run ends with one synchronisation. :meth:`pause` and
     :meth:`resume` hold and release the loop from another thread, between
     batches.
+
+    Under a mesh (``ScenarioFleet(mesh=)``) every rank runs this loop over
+    the same windows with the same per-batch seeds: where the reference
+    replicates one parse to every device, here each rank reads the same
+    source (a pre-compiled stack makes that a zero-parse read).
     """
 
     state: SimState
@@ -214,6 +243,16 @@ class WindowedDriver:
     def _resync(self) -> SimState:
         """Full accounting recompute (subclass hook; identity by default)."""
         return self.state
+
+    def _batch_done(self):
+        """An event that completes with the batch just enqueued: what the
+        run-ahead bound waits on (None on the CPU, where every call has
+        finished when it returns)."""
+        if self.device.type != "cuda":
+            return None
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return done
 
     def _synchronize(self):
         if self.device.type == "cuda":
@@ -251,9 +290,8 @@ class WindowedDriver:
                 + ([self.windows_done + W] if r else []))
             self.windows_done += W
             self.stats_rows.append(stats)
-            if self.device.type == "cuda":
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(self.device))
+            done = self._batch_done()
+            if done is not None:
                 self._inflight.append(done)
                 if len(self._inflight) > self.max_inflight_batches:
                     self._inflight.popleft().synchronize()

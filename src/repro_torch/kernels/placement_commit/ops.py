@@ -104,10 +104,12 @@ def placement_commit_cuda(pref, req, ok, valid, total, denom, reserved0,
                   denom, dyn, node_of, tally, B, P, N, R,
                   int(mode == "dynamic"), bcast)
     placement_commit_cuda.launches += 1
+    placement_commit_cuda.launches_both += mode == "both"
     return node_of, tally
 
 
 placement_commit_cuda.launches = 0
+placement_commit_cuda.launches_both = 0   # of them, per-lane mode 'both'
 
 
 def placement_commit(pref, req, base_ok, valid, total, denom, reserved0,

@@ -25,8 +25,18 @@ Sweep axes multiply (cartesian grid). Every scenario sees the same parsed
 event stream; divergence is injected on the device
 (repro_torch/scenarios/perturb.py). Prints the reference CLI's comparison
 table. ``--serve`` hands the remaining flags to the what-if service's CLI
-(``launch/serve_whatif.py``). ``--mesh`` (the mesh-sharded fleet) waits
-for its slice of the port (ROADMAP Queue 1) and exits with a message.
+(``launch/serve_whatif.py``).
+
+  # the lanes split over 4 gloo ranks on the CPU (one process a rank), or
+  # over the card at world size 1 (NCCL):
+  torchrun --nproc-per-node 4 -m repro_torch.launch.whatif --mesh 4 \
+      --device cpu --nodes 32 --jobs 40 --windows 30 \
+      --schedulers greedy,first_fit --outage 0,0.2
+  PYTHONPATH=src python -m repro_torch.launch.whatif --cell-a --mesh 1 \
+      --jobs 16000 --windows 32
+
+Under ``--mesh`` every rank parses (or replays) the same trace; rank 0
+alone prints the table and writes ``--json`` and ``--snapshot``.
 """
 from __future__ import annotations
 
@@ -36,6 +46,8 @@ import sys
 import tempfile
 import time
 
+import torch
+
 from repro_torch.config import REDUCED_SIM, SimConfig
 from repro_torch.configs import get_sim_config
 from repro_torch.core import tracegen
@@ -43,10 +55,9 @@ from repro_torch.core.precompile import (overflow_warning, precompile_trace,
                                          stack_parse_stats)
 from repro_torch.device import resolve_device
 from repro_torch import parsers as trace_parsers
-from repro_torch.scenarios import ScenarioFleet, expand_grid, format_table
+from repro_torch.scenarios import (ScenarioFleet, expand_grid, fleet_mesh,
+                                   format_table)
 from repro_torch.scenarios.report import to_json
-
-MESH_LATER = "(the mesh-sharded fleet) waits for a later slice of the port"
 
 
 def _floats(s: str):
@@ -154,7 +165,11 @@ def main(argv=None):
                          "picks switchless when every lane's scheduler has "
                          "a table form, switch forces the per-lane proposal "
                          "path, table demands switchless")
-    ap.add_argument("--mesh", default=None, help=f"{MESH_LATER}")
+    ap.add_argument("--mesh", default=None,
+                    help="shard lanes over an N-rank ('data',) mesh (an "
+                         "integer, or 'auto' for the world size; launch N > "
+                         "1 with torchrun --nproc-per-node N); specs are "
+                         "padded up to a multiple of N")
     ap.add_argument("--precompile", default=None,
                     help="pre-compile the trace to this npz (§V-A), then "
                          "replay the sweep from it")
@@ -179,10 +194,29 @@ def main(argv=None):
     if args.list_families:
         print(trace_parsers.describe_parsers())
         raise SystemExit(0)
-    if args.mesh:
-        ap.error(f"--mesh {MESH_LATER}")
     family = args.trace_family
     parser_cls = trace_parsers.get_parser(family)      # fail fast on typos
+    mesh, started = None, False
+    if args.mesh:
+        import torch.distributed as dist
+        started = not dist.is_initialized()
+        try:
+            mesh = fleet_mesh(None if args.mesh == "auto" else int(args.mesh),
+                              args.device)
+        except ValueError as e:
+            ap.error(str(e))
+    try:
+        return _sweep(ap, args, family, parser_cls, mesh)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _sweep(ap, args, family, parser_cls, mesh):
+    """The sweep itself; under a mesh every rank runs it, rank 0 alone
+    prints and writes the report."""
+    rank0 = mesh is None or mesh.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
     device = resolve_device(args.device)
 
     cfg = build_cfg(args)
@@ -191,14 +225,19 @@ def main(argv=None):
         # window geometry (incl. the injection slot pool) wins over flags
         from repro_torch.core.precompile import replay_config
         cfg = replay_config(args.replay, cfg)
-        print(f"replaying {args.replay}: window geometry from the stack "
-              f"(E={cfg.max_events_per_window}, "
-              f"inject_slots={cfg.inject_slots})")
+        say(f"replaying {args.replay}: window geometry from the stack "
+            f"(E={cfg.max_events_per_window}, "
+            f"inject_slots={cfg.inject_slots})")
     specs = build_specs(args)
-    print(f"{len(specs)} scenarios "
-          f"({len(args.schedulers.split(','))} schedulers):")
+    if mesh is not None:
+        n_dev = mesh.size()
+        say(f"mesh: {n_dev} devices over ('data',)"
+            + (f", padding {(-len(specs)) % n_dev} lanes"
+               if len(specs) % n_dev else ""))
+    say(f"{len(specs)} scenarios "
+        f"({len(args.schedulers.split(','))} schedulers):")
     for i, s in enumerate(specs):
-        print(f"  [{i}] {s.name}: {s.describe()}")
+        say(f"  [{i}] {s.name}: {s.describe()}")
 
     tmp = None
     trace_dir = args.trace_dir
@@ -217,20 +256,23 @@ def main(argv=None):
                 trace_dir, n_machines=cfg.max_nodes, n_jobs=args.jobs,
                 horizon_windows=args.windows, seed=args.seed,
                 usage_period_us=max(cfg.window_us * 4, 20_000_000))
-        print(f"generated {family}-schema trace: {summary} "
-              f"({time.time()-t0:.1f}s)")
+        say(f"generated {family}-schema trace: {summary} "
+            f"({time.time()-t0:.1f}s)")
 
     start = trace_parsers.default_start_us(family, cfg)
     replay_path = args.replay
     if args.precompile and replay_path is None:
-        t0 = time.time()
-        n = precompile_trace(cfg, trace_dir, args.precompile, args.windows,
-                             start_us=start, family=family)
-        print(f"pre-compiled {n} windows -> {args.precompile} "
-              f"({time.time()-t0:.1f}s)")
+        t0, n = time.time(), None
+        if rank0:           # one writer; the other ranks replay its stack
+            n = precompile_trace(cfg, trace_dir, args.precompile,
+                                 args.windows, start_us=start, family=family)
+        if mesh is not None:
+            torch.distributed.barrier(group=mesh.get_group())
+        say(f"pre-compiled {n} windows -> {args.precompile} "
+            f"({time.time()-t0:.1f}s)")
         warn = overflow_warning(stack_parse_stats(args.precompile))
         if warn:
-            print(warn)
+            say(warn)
         replay_path = args.precompile
 
     if replay_path is not None:
@@ -242,7 +284,7 @@ def main(argv=None):
                          f"the stack's [0, {n_stack})")
         fleet = ScenarioFleet.from_precompiled(
             cfg, replay_path, specs, batch_windows=args.batch_windows,
-            seed=args.seed, n_windows=args.windows,
+            seed=args.seed, mesh=mesh, n_windows=args.windows,
             start_window=args.start_window, device=device)
     else:
         if args.start_window:
@@ -251,28 +293,29 @@ def main(argv=None):
         source = parser.packed_windows(args.windows, start_us=start)
         fleet = ScenarioFleet(cfg, source, specs,
                               batch_windows=args.batch_windows,
-                              seed=args.seed, device=device)
+                              seed=args.seed, mesh=mesh, device=device)
     t0 = time.time()
     fleet.run()
     wall = time.time() - t0
     if replay_path is None:
         warn = overflow_warning(parser.stats)
         if warn:
-            print(warn)
+            say(warn)
     sim_s = fleet.windows_done * cfg.window_us / 1e6
-    print(f"simulated {fleet.windows_done} windows x {fleet.n_scenarios} "
-          f"scenarios ({sim_s:.0f} sim-s each) in {wall:.2f}s wall on "
-          f"{device} -> {sim_s * fleet.n_scenarios / wall:.1f}x aggregate "
-          f"speed factor, {'zero parses' if replay_path else 'one parse'}")
+    say(f"simulated {fleet.windows_done} windows x {fleet.n_scenarios} "
+        f"scenarios ({sim_s:.0f} sim-s each, {fleet.n_lanes} device lanes) "
+        f"in {wall:.2f}s wall on "
+        f"{device} -> {sim_s * fleet.n_scenarios / wall:.1f}x aggregate "
+        f"speed factor, {'zero parses' if replay_path else 'one parse'}")
 
     report = fleet.report(baseline=args.baseline)
-    print(format_table(report))
-    if args.json:
+    say(format_table(report))
+    if args.json and rank0:
         to_json(report, args.json)
-        print(f"report -> {args.json}")
+        say(f"report -> {args.json}")
     if args.snapshot:
-        fleet.save(args.snapshot)
-        print(f"fleet snapshot -> {args.snapshot}")
+        fleet.save(args.snapshot)          # every rank: a gather
+        say(f"fleet snapshot -> {args.snapshot}")
     if tmp:
         tmp.cleanup()
     return report

@@ -9,14 +9,17 @@ Layout:
   spec.py    declarative ScenarioSpec + grid expansion -> stacked knobs
   perturb.py per-lane transforms of the shared event stream
              (incl. SUBMIT injection into the reserved slot pool)
-  batch.py   the lane-batched fleet step, switchless or switch dispatch
+  batch.py   the lane-batched fleet step, switchless or switch dispatch,
+             and the lanes split over a ('data',) mesh of torch.distributed
+             ranks (fleet_mesh, run_scenarios_sharded)
   runner.py  ScenarioFleet: one parse feeds all lanes
   report.py  per-scenario comparative metrics vs. a baseline scenario
 """
 from repro_torch.scenarios.spec import (ScenarioKnobs, ScenarioSpec,
                                         build_knobs, expand_grid)
+from repro_torch.scenarios.batch import fleet_mesh
 from repro_torch.scenarios.runner import ScenarioFleet
 from repro_torch.scenarios.report import format_table, scenario_report
 
 __all__ = ["ScenarioSpec", "ScenarioKnobs", "build_knobs", "expand_grid",
-           "ScenarioFleet", "scenario_report", "format_table"]
+           "ScenarioFleet", "fleet_mesh", "scenario_report", "format_table"]

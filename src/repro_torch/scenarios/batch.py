@@ -21,11 +21,25 @@ where the reference vmaps a single-scenario step. Per window:
     a per-lane dynamic flag (kernel B in mode 'both').
 
 With identity knobs and the same scheduler, lane 0 computes bit-identically
-to ``engine.run_windows``. The mesh-sharded fleet of the reference
-(``run_scenarios_sharded``) is not ported yet.
+to ``engine.run_windows``. :func:`make_scenario_step` is the one-window
+step with its stats row, for unit tests and the stride-1 mental model.
+
+``run_scenarios_sharded`` splits the lanes over the ranks of a 1-D
+``('data',)`` ``DeviceMesh`` (:func:`fleet_mesh`; ``torch.distributed``,
+one process a device, NCCL on the card and gloo on the CPU): each rank
+holds and advances its contiguous block of B/n lanes
+(:func:`shard_over_fleet`), every rank reads the same windows, and the
+(W, B/n, ...) stats rows are gathered along the lane axis into (W, B, ...)
+on every rank. The window keys are shared by every lane, so a lane's result
+does not depend on its rank: sharding is a pure layout change, bitwise.
 """
 from __future__ import annotations
 
+import atexit
+import dataclasses
+import os
+import shutil
+import tempfile
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -35,6 +49,7 @@ from repro_torch.core import engine as eng
 from repro_torch.core import stats as stats_mod
 from repro_torch.core.events import EventKind, EventWindow
 from repro_torch.core.state import SimState, init_state
+from repro_torch.device import resolve_device
 from repro_torch.kernels.placement_commit.ops import lane_const
 from repro_torch.scenarios import perturb
 from repro_torch.scenarios.spec import ScenarioKnobs
@@ -43,11 +58,124 @@ from repro_torch.sched import (DispatchTable, base_pass, finalize,
                                snapshot_dispatch)
 
 
-def init_batched_state(cfg: SimConfig, n_scenarios: int, device
-                       ) -> SimState:
+FLEET_AXIS = "data"   # the mesh axis the scenario lanes shard over
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def _start_world(dev: torch.device):
+    """The default process group of a fleet mesh: from the ``torchrun``
+    environment when there is one, else a world of 1 over a FileStore in
+    a temporary directory. On the card each rank takes ``cuda:LOCAL_RANK``
+    and NCCL, on the CPU gloo."""
+    import torch.distributed as dist
+    kw = {}
+    if dev.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local)
+        kw["device_id"] = torch.device("cuda", local)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if "MASTER_ADDR" in os.environ and "RANK" in os.environ:
+        dist.init_process_group(backend, init_method="env://", **kw)
+        return
+    d = tempfile.mkdtemp(prefix="fleet_mesh.")
+    atexit.register(shutil.rmtree, d, ignore_errors=True)
+    dist.init_process_group(backend,
+                            store=dist.FileStore(os.path.join(d, "store"), 1),
+                            rank=0, world_size=1, **kw)
+
+
+def fleet_mesh(n_devices: Optional[int] = None, device=None):
+    """A 1-D ``('data',)`` ``DeviceMesh`` over the world's ranks.
+
+    ``device`` is the fleet's device (the card unless "cpu" is passed): on
+    the card the mesh is a "cuda" mesh over NCCL, one rank a card, each
+    rank on ``cuda:LOCAL_RANK``; on the CPU it is a "cpu" mesh over gloo.
+    Without a default process group one is started, from the ``torchrun``
+    environment when there is one, else as a world of 1; the caller ends
+    it with ``torch.distributed.destroy_process_group()``.
+
+    The one difference from the reference's mesh over "the first
+    ``n_devices``": the port runs one process a device, so ``n_devices``
+    (default: the world size) must equal the world size.
+    """
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = resolve_device(device)
+    world = _world_size()
+    n = world if n_devices is None else n_devices
+    if n < 1:
+        raise ValueError(f"fleet_mesh needs at least 1 device, got {n}")
+    if n != world:
+        raise ValueError(f"--mesh {n} != the {world} rank(s) of this world "
+                         "(one process a device: launch with torchrun "
+                         f"--nproc-per-node {n})")
+    if not dist.is_initialized():
+        _start_world(dev)
+    return init_device_mesh(dev.type, (n,), mesh_dim_names=(FLEET_AXIS,))
+
+
+def lane_block(n_lanes: int, mesh) -> Tuple[int, int]:
+    """This rank's contiguous lanes ``[r*B/n, (r+1)*B/n)`` of B =
+    ``n_lanes`` (all of them without a mesh): the fleet's lane split."""
+    if mesh is None:
+        return 0, n_lanes
+    n = mesh.size()
+    if n_lanes % n:
+        raise ValueError(f"B={n_lanes} lanes not divisible by the {n}-device "
+                         f"'{FLEET_AXIS}' mesh axis — pad the spec list")
+    per = n_lanes // n
+    r = mesh.get_local_rank(FLEET_AXIS)
+    return r * per, (r + 1) * per
+
+
+def shard_over_fleet(tree, mesh):
+    """This rank's block (:func:`lane_block`) of every leaf's leading
+    (lane) axis: knobs, batched states and restored snapshots all go
+    through here. No-op without a mesh. The block is a copy, so the full
+    tensors can be freed.
+    """
+    if mesh is None:
+        return tree
+    lo, hi = lane_block(tree[0].shape[0], mesh)
+    return type(tree)(*[x[lo:hi].clone() for x in tree])
+
+
+def gather_over_fleet(tree, mesh, axis: int = 0):
+    """Every rank's block of each leaf's lane axis ``axis``, concatenated
+    in rank order on every rank (``all_gather`` over the mesh's group; each
+    leaf keeps its dtype, and no value is reduced across ranks). A dict or
+    a NamedTuple of tensors; no-op without a mesh."""
+    if mesh is None:
+        return tree
+    import torch.distributed as dist
+    group = mesh.get_group(FLEET_AXIS)
+    n = mesh.size()
+
+    def gather(x):
+        local = x.movedim(axis, 0).contiguous()
+        parts = [torch.empty_like(local) for _ in range(n)]
+        dist.all_gather(parts, local, group=group)
+        return torch.cat(parts).movedim(0, axis)
+
+    if isinstance(tree, dict):
+        return {k: gather(v) for k, v in tree.items()}
+    return type(tree)(*[gather(x) for x in tree])
+
+
+def init_batched_state(cfg: SimConfig, n_scenarios: int, device,
+                       mesh=None) -> SimState:
     """A lane-batched SimState: ``n_scenarios`` identical empty worlds,
-    each with its own storage (the engine updates tables in place)."""
-    return SimState(*[x.unsqueeze(0).repeat((n_scenarios,) + (1,) * x.dim())
+    each with its own storage (the engine updates tables in place). Under
+    a ``mesh`` only this rank's block of B/n lanes is built, never all B.
+    """
+    lo, hi = lane_block(n_scenarios, mesh)
+    return SimState(*[x.unsqueeze(0).repeat((hi - lo,) + (1,) * x.dim())
                       for x in init_state(cfg, device)])
 
 
@@ -154,6 +282,32 @@ def make_scenario_advance(cfg: SimConfig, scheduler_names: Tuple[str, ...],
     return advance
 
 
+def make_scenario_step(cfg: SimConfig, scheduler_names: Tuple[str, ...],
+                       has_storm: bool = True,
+                       table: Optional[DispatchTable] = None):
+    """The one-window step of every lane, its stats row included:
+    ``step(state_B, w, rng, knobs) -> (state_B, stats)`` with
+    ``injected_arrivals`` in the stats, in the reference's argument order
+    (``rng`` before ``knobs``). A one-lane state stands for the reference's
+    unbatched one. Each call dispatches through the switch path on the
+    lanes' schedulers read from ``knobs.sched_idx``, as the reference's
+    ``lax.switch`` does; ``run_scenarios`` composes the advance and the
+    stats itself, so strided runs skip the stats work."""
+    if table is None:
+        table = snapshot_dispatch(scheduler_names)
+
+    def step(state: SimState, w: EventWindow, rng, knobs: ScenarioKnobs
+             ) -> Tuple[SimState, Dict[str, torch.Tensor]]:
+        advance = make_scenario_advance(cfg, scheduler_names, has_storm,
+                                        table, tuple(knobs.sched_idx.tolist()))
+        state, injected = advance(state, w, knobs, rng)
+        stats = stats_mod.window_stats(state, cfg)
+        stats["injected_arrivals"] = injected
+        return state, stats
+
+    return step
+
+
 def run_scenarios(state: SimState, windows: EventWindow, knobs: ScenarioKnobs,
                   cfg: SimConfig, scheduler_names: Tuple[str, ...],
                   seed: int = 0, has_storm: bool = True,
@@ -215,3 +369,39 @@ def resync_fleet(state: SimState, cfg: SimConfig) -> SimState:
     one launch per tally for all lanes, every ``resync_windows``
     windows)."""
     return eng.recompute_accounting(state, cfg)
+
+
+def run_scenarios_sharded(state: SimState, windows: EventWindow,
+                          knobs: ScenarioKnobs, cfg: SimConfig,
+                          scheduler_names: Tuple[str, ...], mesh,
+                          seed: int = 0, has_storm: bool = True,
+                          table: Optional[DispatchTable] = None,
+                          lane_scheds: Optional[Tuple[int, ...]] = None
+                          ) -> Tuple[SimState, Dict[str, torch.Tensor]]:
+    """``run_scenarios`` with the lanes split over the ranks of ``mesh``.
+
+    ``state`` and ``knobs`` hold this rank's block of B/n lanes
+    (:func:`shard_over_fleet`); ``windows`` are the same on every rank. The
+    local lanes run ``run_scenarios`` with the same key schedule, and the
+    (W, B/n, ...) stats rows are gathered along the lane axis into (W, B,
+    ...) on every rank. Returns the advanced local state and the gathered
+    stats. ``lane_scheds`` are the local lanes' static scheduler indices
+    (read once from ``knobs.sched_idx`` when not given). B must divide by
+    the mesh size: :func:`shard_over_fleet` and :func:`init_batched_state`
+    raise otherwise, before any lane runs (``ScenarioFleet`` pads).
+
+    Like the reference's sharded fleet, this always dispatches through the
+    switch path (kernel B in mode 'both' over the local lanes);
+    ``cfg.sched_dispatch='table'`` raises. Lane trajectories are bitwise
+    those of the unsharded (switchless) fleet.
+    """
+    if cfg.sched_dispatch == "table":
+        raise ValueError(
+            "cfg.sched_dispatch='table' is incompatible with mesh-sharded "
+            "fleets (the sharded fleet dispatches through the switch path, "
+            "with no static per-lane grouping) — use 'auto'")
+    state, stats = run_scenarios(
+        state, windows, knobs, dataclasses.replace(cfg,
+                                                   sched_dispatch="switch"),
+        scheduler_names, seed, has_storm, table, lane_scheds)
+    return state, gather_over_fleet(stats, mesh, axis=1)

@@ -8,7 +8,8 @@ kinds and the retry and breaker policies' defaults, the pre-compiled
 stack's meta fields, the snapshot's meta keys, OpenB's vocabularies and the
 full-cell config; the training side's
 TrainConfig and ShapeConfig (fields and defaults), SHAPES, and each
-architecture's parameter counts and ``describe`` line."""
+architecture's parameter counts and ``describe`` line; and the
+CloudSim-like baseline (policies, workload, a run's outcome)."""
 import dataclasses
 
 import numpy as np
@@ -299,3 +300,22 @@ def test_service_batch_key_and_metrics_keys_equal():
         return sorted(snap), sorted(snap["resilience"])
     assert keys(service_metrics.ServiceMetrics().snapshot()) == \
         keys(ref_service_metrics.ServiceMetrics().snapshot())
+
+
+@pytest.mark.parametrize("policy", ["first_fit", "best_fit", "worst_fit"])
+def test_cloudsim_baseline_equal(policy):
+    """The port's CloudSim-like baseline is the reference's: the same
+    policies, workload and outcome of a run (all but its wall time)."""
+    import repro.baselines.cloudsim_like as ref_cs
+    from repro_torch.baselines import cloudsim_like as cs
+    assert list(cs.PLACEMENT_POLICIES) == list(ref_cs.PLACEMENT_POLICIES)
+    assert (cs.CloudSimLike.SUBMIT, cs.CloudSimLike.FINISH) == \
+        (ref_cs.CloudSimLike.SUBMIT, ref_cs.CloudSimLike.FINISH)
+    assert [dataclasses.asdict(c) for c in cs.synth_workload(300, seed=3)] \
+        == [dataclasses.asdict(c) for c in ref_cs.synth_workload(300, seed=3)]
+    got = cs.run_benchmark(24, 300, seed=3, policy=policy)
+    want = ref_cs.run_benchmark(24, 300, seed=3, policy=policy)
+    got.pop("wall_s"), want.pop("wall_s")
+    assert got == want and got["placed"] > 0
+    with pytest.raises(KeyError, match="unknown placement policy"):
+        cs.CloudSimLike(4, policy="no_such_policy")

@@ -17,7 +17,7 @@
   rtol 5e-7, the sum of two such errors.
 * Lane 0 against the port's own ``Simulation``; a tracegen trace through
   both packages' parsers and ``ScenarioFleet``s; the ``whatif`` CLI on the
-  CPU; the entry points that wait for later slices.
+  CPU; the entry points that waited for later slices.
 """
 import dataclasses
 import os
@@ -454,8 +454,14 @@ def test_whatif_cli_on_the_cpu(tmp_path, capsys):
 
 def test_entry_points_that_wait_for_later_slices():
     specs = [ScenarioSpec()]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ScenarioFleet(CFG, iter(()), specs, mesh=object(), device="cpu")
+    # the mesh-sharded fleet has landed (tests/test_torch_scenarios_sharded)
+    from repro_torch.scenarios import fleet_mesh
+    try:
+        fleet = ScenarioFleet(CFG, iter(()), specs,
+                              mesh=fleet_mesh(1, device="cpu"), device="cpu")
+        assert fleet.n_lanes == fleet.n_scenarios == 1
+    finally:
+        torch.distributed.destroy_process_group()
     # snapshots, pre-compiled replay and the RNG schedulers have landed
     fleet = ScenarioFleet(CFG, iter(()), specs, device="cpu")
     with tempfile.TemporaryDirectory() as d:
