@@ -176,11 +176,27 @@ Phases, each printing its own lines:
      ``evict_invalid``, a resync, the invariants, against the same windows
      through the plain versions on the card (state bitwise, stats bitwise
      but the variances, within rtol 2.5e-7; no kernel launched there);
-  13. a ``kernels:`` status line, phase 6's, phase 10's, phase 11's and
-     phase 12's numbers as JSON lines, and the JSON kernel table (seven
-     kernels, launches by path; F's body and tensor-core launches, F at
-     qwen2-moe's and G at mamba2's shapes, B and D's cluster size; E's
-     surrogate shape).
+  13. the LM on a mesh, a world of 1 over NCCL (``make_host_mesh(1, 1)``,
+     destroyed in a ``finally`` each time): its serving part runs inside
+     phase 11 on qwen2-moe-a2.7b's parameter tensors (placed by
+     ``param_shardings`` with no copy; ``moe_impl="shard_map"`` under
+     ``choose_serve_mode``'s rules; bf16 prefill logits bitwise the
+     unsharded path's, f32 greedy tokens equal phase 11's, F launched once
+     a layer a prefill, peak memory within 1 GiB of phase 11's; one
+     decode step traced unsharded, on the mesh through the EP path and
+     through gspmd: device time by kernel, busy share, and the host's
+     Python time by package); then qwen3-4b trained 2 steps at full width
+     under 'train' rules (first loss bitwise phase 8's, G once a step),
+     one more mesh step and one unsharded step on the same tensors traced
+     (device time by category, busy share, peak, the operators whose
+     memory differs), the runner restoring onto the mesh through an
+     injected crash at reduced width, and ``compressed_psum`` over NCCL
+     bitwise a numpy oracle;
+  14. a ``kernels:`` status line, phase 6's, phase 10's, phase 11's,
+     phase 12's and phase 13's numbers as JSON lines, and the JSON kernel
+     table (seven kernels, launches by path; F's body and tensor-core
+     launches, F at qwen2-moe's and G at mamba2's shapes, B and D's
+     cluster size; E's surrogate shape).
 
 The seven CUDA kernels are built at first use from every
 ``src/repro_torch/csrc/*.cu`` (one nvcc per source, all started together)
@@ -254,6 +270,8 @@ FAMILY_MOE = "qwen2-moe-a2.7b"        # served at full width (phase 11)
 FAMILY_SSM = "mamba2-780m"            # served and trained at full width
 FAMILY_HYBRID = "jamba-1.5-large-398b"  # reduced: 398 B parameters at full
 SSM_CHECK_LEN = 640                   # the f32 check's full forward: 5 chunks
+MESH_TRAIN_STEPS = 2                  # phase 13's training steps on the mesh
+TRACE_STEPS = 4                       # phase 13's traced decode steps
 
 
 PLUGIN = "smoke_pack_left"     # the fleet's external-family lane
@@ -343,18 +361,35 @@ def profile_call(torch, fn, label: str, top: int = 15) -> dict:
     """torch.profiler over one call of ``fn``: the top device time by name
     and the summed device time over the wall time. Returns the device
     microseconds and launch count by kernel name."""
+    return profile_detail(torch, fn, label, top)["rows"]
+
+
+def profile_detail(torch, fn, label: str, top: int = 15,
+                   memory: bool = False, cpu: bool = True) -> dict:
+    """:func:`profile_call`'s trace, returned with its wall time and, with
+    ``memory``, the operators that allocated the most device memory (net
+    of what they freed; the profiler's ``profile_memory``). ``cpu=False``
+    records the device's kernels alone (the host's operators are many
+    thousands a decode step, and summing them takes seconds)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=acts + [ProfilerActivity.CUDA],
+                 profile_memory=memory) as prof:
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
-    rows = {}
+    rows, mem = {}, {}
     for e in prof.key_averages():
         # device-side events only: a CPU op's row repeats its kernels' time
         if e.device_type != DeviceType.CUDA:
+            if memory:
+                b = getattr(e, "self_device_memory_usage", None)
+                if b is None:
+                    b = e.self_cuda_memory_usage
+                if b > 0:
+                    mem[e.key] = (b, e.count)
             continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
@@ -368,7 +403,73 @@ def profile_call(torch, fn, label: str, top: int = 15) -> dict:
     for key, (dev_us, count) in sorted(rows.items(),
                                        key=lambda kv: -kv[1][0])[:top]:
         print(f"  {dev_us / 1e3:10.3f} ms  x{count:<6d} {key[:90]}")
-    return rows
+    return dict(rows=rows, wall_us=wall_us, busy_us=busy, mem=mem)
+
+
+def by_category(rows: dict) -> dict:
+    """A train step's device time and launches by ``TRAIN_CATEGORIES``."""
+    cats = {}
+    for k, (dev_us, count) in rows.items():
+        cat = next((c for c, keys in TRAIN_CATEGORIES if any(
+            key in k for key in keys)), "other")
+        us, n = cats.get(cat, (0.0, 0))
+        cats[cat] = (us + dev_us, n + count)
+    return cats
+
+
+def decode_step_trace(torch, engine, toks, label: str) -> dict:
+    """One decode step of ``engine`` on the card and on the host: the
+    device time by kernel (two device-only profiles, ``generate`` of 1 and
+    of 1 + ``TRACE_STEPS`` tokens, their difference over ``TRACE_STEPS``),
+    its wall time and busy share, and where the host's Python time goes
+    (cProfile over the longer run, self time by file: DTensor's dispatch,
+    the rest of torch, this package)."""
+    import cProfile
+    import pstats
+    n = TRACE_STEPS
+    engine.generate(toks, 2)                          # warm
+    pre = profile_detail(torch, lambda: engine.generate(toks, 1),
+                         f"{label}: prefill", top=0, cpu=False)
+    dec = profile_detail(torch, lambda: engine.generate(toks, 1 + n),
+                         f"{label}: prefill + {n} decode steps", top=0,
+                         cpu=False)
+    per = {k: ((v[0] - pre["rows"].get(k, (0, 0))[0]) / n,
+               (v[1] - pre["rows"].get(k, (0, 0))[1]) / n)
+           for k, v in dec["rows"].items()}
+    wall = (dec["wall_us"] - pre["wall_us"]) / n
+    dev_us = sum(v[0] for v in per.values())
+    n_k = sum(v[1] for v in per.values())
+    print(f"{label}: one decode step: wall {wall / 1e3:.3f} ms, device "
+          f"{dev_us / 1e3:.3f} ms (busy share {dev_us / wall:.3f}), "
+          f"{n_k:.1f} kernel launches")
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
+    for key, (us, count) in top:
+        print(f"  {us / 1e3:10.3f} ms  x{count:<6.4g} {key[:90]}")
+    pr = cProfile.Profile()
+    pr.enable()
+    engine.generate(toks, 1 + n)
+    torch.cuda.synchronize()
+    pr.disable()
+    dt_py = "torch.distributed.tensor (DTensor dispatch, redistribute)"
+    groups = {dt_py: 0.0, "torch's other Python": 0.0, "repro_torch": 0.0,
+              "C calls (torch operators, their launches)": 0.0,
+              "other Python": 0.0}
+    for (fname, _, _), (_, _, tt, _, _) in pstats.Stats(pr).stats.items():
+        fname = fname.replace("\\", "/")
+        g = (dt_py if "torch/distributed/tensor" in fname else
+             "torch's other Python" if "/torch/" in fname else
+             "repro_torch" if "repro_torch" in fname else
+             "C calls (torch operators, their launches)" if fname == "~"
+             else "other Python")
+        groups[g] += tt
+    total = sum(groups.values())
+    print(f"{label}: host Python self time over prefill + {n} decode steps "
+          f"(cProfile, {total * 1e3:.1f} ms with its own overhead): " +
+          ", ".join(f"{g} {t / total:.3f}" for g, t in groups.items()))
+    return dict(wall_ms=wall / 1e3, device_ms=dev_us / 1e3,
+                busy_share=dev_us / wall, launches=n_k,
+                top=[(k[:60], us / 1e3, c) for k, (us, c) in top],
+                host_self_share={g: t / total for g, t in groups.items()})
 
 
 def profile_run(torch, make_driver, label: str, n_windows: int) -> None:
@@ -381,8 +482,10 @@ def profile_run(torch, make_driver, label: str, n_windows: int) -> None:
 def families_phase(torch, dev, smi, reset_counts, counters, results,
                    seed: int) -> dict:
     """Phase 11: the MoE and SSD families (qwen2-moe-a2.7b and mamba2-780m
-    at full width, jamba-1.5-large-398b reduced). Returns the launch counts
-    by path and the phase's numbers; raises on any failed check."""
+    at full width, jamba-1.5-large-398b reduced). Phase 13's serving part
+    (:func:`mesh_serve_moe`) runs on qwen2-moe's parameters while they are
+    alive. Returns the launch counts by path and the phase's numbers;
+    raises on any failed check."""
     from repro_torch.config import TrainConfig
     from repro_torch.configs import get_config, reduced
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -631,6 +734,11 @@ def families_phase(torch, dev, smi, reset_counts, counters, results,
                              f32_tokens_agree=agree32,
                              f32_first_token_gap=gap.tolist(),
                              rel_l2_f32=rel32)
+    nums["mesh_serve"] = mesh_serve_moe(torch, dev, smi, reset_counts,
+                                        counters, mcfg, params, prompts,
+                                        max_seq, nums["moe_serve"],
+                                        out32["pallas"])
+    launches["mesh_serve"] = nums["mesh_serve"].pop("launches")
     del rows, a, b, out32
 
     # f32 compute, a loose capacity: 24-token prefill + 7 decode steps
@@ -908,6 +1016,335 @@ class plain_on_card:
         from repro_torch.kernels.segment_usage.ref import (
             segment_usage_lanes_ref)
         return segment_usage_lanes_ref(task_node, values, mask, n_nodes)
+
+
+def mesh_serve_moe(torch, dev, smi, reset_counts, counters, mcfg, params,
+                   prompts, max_seq, phase11, out32) -> dict:
+    """Phase 13, serving: qwen2-moe-a2.7b at full width on a world of 1
+    over NCCL (``make_host_mesh(1, 1)``), on phase 11's parameter tensors
+    (called from phase 11 while they are alive; placing them wraps them
+    with no copy): ``moe_impl="shard_map"`` under the rules that
+    ``choose_serve_mode`` picks. bf16 prefill logits bitwise the unsharded
+    path's, f32 greedy tokens equal phase 11's, F launched as many times,
+    timed beside phase 11's serving. Returns its launches and numbers."""
+    import torch.distributed as dist
+    from repro_torch.config import ShapeConfig
+    from repro_torch.distributed import placement
+    from repro_torch.distributed.sharding import axis_rules, make_rules
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.engine import ServingEngine
+
+    t_phase = time.time()
+    cfg = dataclasses.replace(mcfg, moe_impl="shard_map")
+
+    def timed_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.time() - t0) * 1e3, out
+
+    # the unsharded path's bf16 prefill logits, on the same parameters,
+    # and its decode step traced (the mesh's is traced below)
+    engine = ServingEngine(mcfg, params, max_seq)
+    with torch.inference_mode():
+        want = engine._prefill(engine._run_params, prompts)[0].float()
+    trace_plain = decode_step_trace(torch, engine, prompts,
+                                    f"{mcfg.name} unsharded, gspmd")
+    del engine
+    gc.collect()
+    mesh = make_host_mesh(data=1, model=1)
+    try:
+        assert dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+        shape = ShapeConfig("mesh_serve", "decode", max_seq, SERVE_B)
+        mode = placement.choose_serve_mode(shape, mesh)
+        rules = make_rules(mesh, mode, cfg)
+        with axis_rules(mesh, rules):
+            placed = placement.place_tree(
+                params, placement.param_shardings(cfg, mesh, rules))
+            same = all(a.to_local().data_ptr() == b.data_ptr()
+                       for a, b in zip(_leaves(placed), _leaves(params)))
+            assert same, "placing the parameters copied a leaf"
+            toks = placement.place_tree(
+                {"t": prompts},
+                {"t": placement.batch_shardings(cfg, mesh, rules)["tokens"]}
+            )["t"]
+            engine = ServingEngine(cfg, placed, max_seq)
+            with torch.no_grad():
+                got = engine._prefill(engine._run_params, toks)[0]
+            got = got.full_tensor().float()
+            bitwise = bool(torch.equal(got, want))
+            print(f"mesh serve {cfg.name}: world of 1 over NCCL, mode "
+                  f"{mode!r}, moe_impl shard_map; bf16 prefill logits "
+                  f"bitwise the unsharded path's: {bitwise} (max abs "
+                  f"{float((got - want).abs().max()):.3g})")
+            assert bitwise, "mesh prefill logits differ"
+            del got, want
+            engine.generate(toks, 2)                  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            gen_ms, out = timed_ms(lambda: engine.generate(toks, SERVE_GEN))
+            launches = {n: fn.launches for n, fn in counters.items()}
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            pre_ms = float(np.median([timed_ms(lambda: engine.generate(
+                toks, 1))[0] for _ in range(3)]))
+            full_ms = gen_ms                  # one run: decode is ~10 s
+            dec_ms = (full_ms - pre_ms) / (SERVE_GEN - 1)
+            trace_mesh = decode_step_trace(
+                torch, engine, toks, f"{cfg.name} on the mesh, shard_map")
+            del engine
+            # the same mesh through the gspmd MoE: what the EP path adds
+            # apart from DTensor
+            engine = ServingEngine(mcfg, placed, max_seq)
+            trace_gspmd = decode_step_trace(
+                torch, engine, toks, f"{cfg.name} on the mesh, gspmd")
+            del engine
+            gc.collect()
+            # f32 greedy tokens (f32 casts nothing): equal to phase 11's
+            c32 = dataclasses.replace(cfg, dtype="float32")
+            eng32 = ServingEngine(c32, placed, max_seq)
+            tok32 = eng32.generate(toks, SERVE_GEN).full_tensor()
+            del eng32, placed, toks
+        agree = int((tok32 == out32).sum())
+        print(f"mesh serve {cfg.name}: f32 greedy tokens equal phase 11's "
+              f"{agree} of {tok32.numel()}")
+        assert torch.equal(tok32, out32), "mesh f32 tokens differ"
+        out = out.full_tensor()
+        assert out.shape == (SERVE_B, SERVE_GEN)
+        p11 = phase11
+        row = dict(mode=mode, prefill_ms=pre_ms, decode_ms=dec_ms,
+                   generate_ms=full_ms,
+                   new_tokens_per_s=SERVE_B * SERVE_GEN / full_ms * 1e3,
+                   decode_tokens_per_s=SERVE_B / dec_ms * 1e3,
+                   peak_gib=peak, phase11={k: p11[k] for k in (
+                       "prefill_ms", "decode_ms", "new_tokens_per_s",
+                       "decode_tokens_per_s", "peak_gib")},
+                   decode_trace=trace_mesh, decode_trace_gspmd=trace_gspmd,
+                   decode_trace_unsharded=trace_plain,
+                   launches=launches, card=smi)
+        print(f"mesh serve {cfg.name}: one traced decode step, mesh "
+              f"shard_map / mesh gspmd / unsharded: wall "
+              f"{trace_mesh['wall_ms']:.3f} / {trace_gspmd['wall_ms']:.3f} "
+              f"/ {trace_plain['wall_ms']:.3f} ms, device "
+              f"{trace_mesh['device_ms']:.3f} / "
+              f"{trace_gspmd['device_ms']:.3f} / "
+              f"{trace_plain['device_ms']:.3f} ms, kernel launches "
+              f"{trace_mesh['launches']:.1f} / {trace_gspmd['launches']:.1f}"
+              f" / {trace_plain['launches']:.1f} [{smi}]")
+        print(f"mesh serve {cfg.name}: prefill {pre_ms:.3f} ms (phase 11 "
+              f"{p11['prefill_ms']:.3f}), decode {dec_ms:.3f} ms a step "
+              f"({p11['decode_ms']:.3f}), new tokens/s "
+              f"{row['new_tokens_per_s']:.2f} "
+              f"({p11['new_tokens_per_s']:.2f}), peak {peak:.3f} GiB "
+              f"({p11['peak_gib']:.3f}) [{smi}]")
+        print(f"launches (mesh_serve run): {launches}")
+        assert launches["flash_attention"] == cfg.n_layers, launches
+        assert abs(peak - p11["peak_gib"]) <= 1.0, (peak, p11["peak_gib"])
+    finally:
+        dist.destroy_process_group()
+    row["phase_s"] = time.time() - t_phase
+    print(f"phase 13 (serving, inside phase 11): {row['phase_s']:.1f}s "
+          f"[{smi}]")
+    return row
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def mesh_train_phase(torch, dev, smi, reset_counts, counters, tcfg,
+                     phase8) -> dict:
+    """Phase 13, training and the rest: qwen3-4b at full width, 2 steps
+    under 'train' rules on a world of 1 over NCCL (first loss bitwise
+    phase 8's, G once a step); the runner restoring onto the mesh at
+    reduced width through an injected crash; ``compressed_psum`` over
+    NCCL against a numpy oracle. Returns its launches and numbers."""
+    import torch.distributed as dist
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed import compression, placement
+    from repro_torch.distributed.fault import FaultPlan, FaultTolerantRunner
+    from repro_torch.distributed.sharding import (NamedSharding, P,
+                                                  axis_rules, import_shard_map,
+                                                  make_rules)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.train import optim
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import map_tree
+
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    nums = {"card": smi}
+    mesh = make_host_mesh(data=1, model=1)
+    try:
+        rules = make_rules(mesh, "train", tcfg)
+        psh = placement.param_shardings(tcfg, mesh, rules)
+        params = lm.init_params(tcfg, torch.Generator(device=dev).manual_seed(
+            0), dev)
+        opt = optim.init_opt_state(params)
+        params, opt = placement.place_tree(
+            (params, opt), (psh, placement.opt_shardings(psh, mesh)))
+        data = SyntheticLM(tcfg, TRAIN_B, TRAIN_SEQ, seed=0)
+        bsh = placement.batch_shardings(tcfg, mesh, rules)
+        step_fn = make_train_step(tcfg, TrainConfig())
+        losses, step_ms = [], []
+        reset_counts()
+        with axis_rules(mesh, rules):
+            for i in range(MESH_TRAIN_STEPS):
+                batch = placement.place_tree(
+                    {k: torch.from_numpy(v).to(dev)
+                     for k, v in data.global_batch(i).items()},
+                    {k: bsh[k] for k in ("tokens", "labels")})
+                torch.cuda.synchronize()
+                t0 = time.time()
+                params, opt, m = step_fn(params, opt, batch, None)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                step_ms.append((time.time() - t0) * 1e3)
+        launches = {n: fn.launches for n, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+        # one more step traced on the mesh, then one on the same tensors
+        # unwrapped (to_local: no copy on a world of 1) through a plain
+        # step; each step's peak measured once its gradient buffer exists
+        def traced(fn, i, label, placed):
+            nonlocal params, opt
+
+            def run():
+                nonlocal params, opt
+                b = {k: torch.from_numpy(v).to(dev)
+                     for k, v in data.global_batch(i).items()}
+                if placed:
+                    b = placement.place_tree(b, {k: bsh[k] for k in b})
+                params, opt, _ = fn(params, opt, b, None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            with axis_rules(mesh if placed else None, rules):
+                tr = profile_detail(torch, run, label, top=8, memory=True)
+            tr["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            return tr
+        tr_mesh = traced(step_fn, MESH_TRAIN_STEPS,
+                         "mesh train step (4 x 512 tokens)", True)
+        del step_fn, batch, m
+        gc.collect()
+        params, opt = map_tree(
+            lambda t: t.to_local() if hasattr(t, "to_local") else t,
+            (params, opt))
+        plain_fn = make_train_step(tcfg, TrainConfig())
+        traced(plain_fn, MESH_TRAIN_STEPS + 1, "plain step (warm)", False)
+        tr_plain = traced(plain_fn, MESH_TRAIN_STEPS + 2,
+                          "unsharded train step, same tensors", False)
+        cm, cp = by_category(tr_mesh["rows"]), by_category(tr_plain["rows"])
+        print(f"mesh train step against the unsharded step on the same "
+              f"tensors: wall {tr_mesh['wall_us'] / 1e3:.3f} against "
+              f"{tr_plain['wall_us'] / 1e3:.3f} ms, device "
+              f"{tr_mesh['busy_us'] / 1e3:.3f} against "
+              f"{tr_plain['busy_us'] / 1e3:.3f} ms (busy share "
+              f"{tr_mesh['busy_us'] / tr_mesh['wall_us']:.3f} against "
+              f"{tr_plain['busy_us'] / tr_plain['wall_us']:.3f}), peak "
+              f"{tr_mesh['peak_gib']:.3f} against {tr_plain['peak_gib']:.3f}"
+              f" GiB [{smi}]; device time by category, mesh / unsharded:")
+        for cat in sorted(set(cm) | set(cp),
+                          key=lambda c: -cm.get(c, (0, 0))[0]):
+            (um, nm), (up, n_p) = cm.get(cat, (0, 0)), cp.get(cat, (0, 0))
+            print(f"  {um / 1e3:10.3f} / {up / 1e3:10.3f} ms  x{nm} / "
+                  f"x{n_p}  {cat}")
+        mem_d = {k: tr_mesh["mem"].get(k, (0, 0))[0]
+                 - tr_plain["mem"].get(k, (0, 0))[0]
+                 for k in set(tr_mesh["mem"]) | set(tr_plain["mem"])}
+        print("operators by device memory they allocated and kept, mesh "
+              "step less unsharded step (GiB; the profiler's "
+              "profile_memory):")
+        for k, b in sorted(mem_d.items(), key=lambda kv: -abs(kv[1]))[:8]:
+            print(f"  {b / 2 ** 30:+10.3f}  {k[:90]}")
+        nums["train_trace"] = dict(
+            wall_ms=tr_mesh["wall_us"] / 1e3,
+            device_ms=tr_mesh["busy_us"] / 1e3, peak_gib=tr_mesh["peak_gib"],
+            unsharded_wall_ms=tr_plain["wall_us"] / 1e3,
+            unsharded_device_ms=tr_plain["busy_us"] / 1e3,
+            unsharded_peak_gib=tr_plain["peak_gib"],
+            categories={c: v[0] / 1e3 for c, v in cm.items()},
+            unsharded_categories={c: v[0] / 1e3 for c, v in cp.items()})
+        del params, opt, plain_fn, tr_mesh, tr_plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"mesh train {tcfg.name} at full width, world of 1 over NCCL, "
+              f"'train' rules, chunked_ce: losses {losses}; first loss "
+              f"bitwise phase 8's ({phase8['first_loss']}): "
+              f"{losses[0] == phase8['first_loss']}; steps {step_ms} ms "
+              f"(phase 8 median {phase8['step_ms']:.3f}); peak {peak:.3f} "
+              f"GiB (phase 8 {phase8['peak_gib']:.3f}) [{smi}]")
+        print(f"launches (mesh_train run, {MESH_TRAIN_STEPS} steps): "
+              f"{launches}")
+        assert losses[0] == phase8["first_loss"], (losses, phase8)
+        assert all(np.isfinite(losses)), losses
+        assert launches["fused_ce"] == MESH_TRAIN_STEPS, launches
+        nums["train"] = dict(losses=losses, step_ms=step_ms, peak_gib=peak,
+                             launches=launches,
+                             phase8={k: phase8[k] for k in (
+                                 "first_loss", "step_ms", "peak_gib")})
+
+        # the runner at reduced width: a crash at step 4 restored onto the
+        # mesh, against the uninterrupted run on the same mesh
+        rcfg = dataclasses.replace(reduced(get_config(TRAIN_ARCH)),
+                                   remat_policy="none")
+        rrules = make_rules(mesh, "train", rcfg)
+        rpsh = placement.param_shardings(rcfg, mesh, rrules)
+        rsh = (rpsh, placement.opt_shardings(rpsh, mesh))
+        reps = []
+        for plan in (FaultPlan(), FaultPlan(crashes={4: "smoke"})):
+            with tempfile.TemporaryDirectory() as d, \
+                    axis_rules(mesh, rrules):
+                rtc = TrainConfig(learning_rate=3e-4, total_steps=8,
+                                  warmup_steps=1, checkpoint_every=3,
+                                  checkpoint_dir=d)
+                reps.append(FaultTolerantRunner(
+                    rcfg, rtc, batch=4, seq_len=64, fault_plan=plan,
+                    shardings=rsh, device=dev).run(8))
+        diff = float(np.abs(np.subtract(reps[0]["losses"],
+                                        reps[1]["losses"])).max())
+        print(f"mesh runner (reduced {rcfg.name}, 8 steps, crash at 4, "
+              f"restored by shardings): recoveries {reps[1]['recoveries']}"
+              f", largest loss difference {diff:.3g} (<= 1e-5)")
+        assert reps[1]["recoveries"] == [4] and diff <= 1e-5, diff
+        nums["runner_max_diff"] = diff
+
+        # compressed_psum over the 'data' axis, NCCL, in local_map
+        from torch.distributed.tensor import Replicate
+        x = torch.randn(4096, generator=torch.Generator(device=dev)
+                        .manual_seed(7), device=dev)
+        local_map, kw = import_shard_map()
+        dmesh = NamedSharding(mesh, P()).device_mesh
+        got = local_map(lambda v: compression.compressed_psum(v, "data",
+                                                              mesh),
+                        out_placements=[Replicate()],
+                        in_placements=([Replicate()],), device_mesh=dmesh,
+                        **kw)(x)
+        xn = x.cpu().numpy()
+        scale = np.float32(np.abs(xn).max()) / np.float32(127.0) + \
+            np.float32(1e-12)
+        q = np.clip(np.round(xn / scale), -127, 127).astype(np.int32)
+        want = q.astype(np.float32) * scale
+        ok = np.array_equal(got.cpu().numpy(), want)
+        print(f"compressed_psum over NCCL (world of 1, 4,096 values): "
+              f"bitwise the numpy oracle: {ok}")
+        assert ok, "compressed_psum differs from its oracle"
+    finally:
+        dist.destroy_process_group()
+    nums["phase_s"] = time.time() - t_phase
+    print(f"phase 13 (training, runner, compressed_psum): "
+          f"{nums['phase_s']:.1f}s [{smi}]")
+    return nums
 
 
 def full_cell_windows(cfg, n_tasks: int, seed: int):
@@ -2204,6 +2641,8 @@ def main(argv=None) -> int:
     assert all(launches_train[k] > 0 for k in TRAIN_PATH), launches_train
     assert all(np.isfinite(losses)), losses
     med_ms = float(np.median(step_ms))
+    phase8 = dict(first_loss=losses[0], step_ms=med_ms,
+                  peak_gib=peak / 2 ** 30)       # phase 13's comparison
     print(f"train losses (warm-up + {TRAIN_TIMED}): {losses}")
     print(f"train step: {step_ms} ms, median {med_ms:.3f} ms for "
           f"{ce_T} tokens (warm-up step {warm_s * 1e3:.1f} ms) [{smi}]")
@@ -2217,12 +2656,7 @@ def main(argv=None) -> int:
     print(f"train: kernel G {g_us / 1e3:.3f} ms of {all_us / 1e3:.3f} ms "
           f"device time in the traced step (share {g_us / all_us:.4f}) "
           f"[{smi}]")
-    cats = {}
-    for k, (dev_us, count) in prof_train.items():
-        cat = next((c for c, keys in TRAIN_CATEGORIES if any(
-            key in k for key in keys)), "other")
-        us, n = cats.get(cat, (0.0, 0))
-        cats[cat] = (us + dev_us, n + count)
+    cats = by_category(prof_train)
     print("train step, device time by category:")
     for cat, (dev_us, count) in sorted(cats.items(),
                                        key=lambda kv: -kv[1][0]):
@@ -2668,8 +3102,8 @@ def main(argv=None) -> int:
     # earlier phases' tensors released first (qwen2-moe's f32 parameters
     # alone are 57 GB); the phase prints what is still held
     del windows, pw
-    families = families_phase(torch, dev, smi, reset_counts, counters,
-                              results, args.seed)
+    families = families_phase(
+        torch, dev, smi, reset_counts, counters, results, args.seed)
     fam_launches = families["launches"]
 
     # ---- 12. the sharded fleet over NCCL and the full cell --------------
@@ -2677,7 +3111,12 @@ def main(argv=None) -> int:
         torch, dev, smi, reset_counts, counters, fcfg, fleet_ws, specs,
         phase5, cfg.sched_batch)
 
-    # ---- 13. the kernel table ------------------------------------------
+    # ---- 13. the LM on a mesh: training (serving ran in phase 11) -------
+    mesh_lm = mesh_train_phase(torch, dev, smi, reset_counts, counters,
+                               tcfg, phase8)
+    launches_mesh_train = mesh_lm["train"].pop("launches")
+
+    # ---- 14. the kernel table ------------------------------------------
     meta = {
         "constraint_match": ("src/repro/kernels/constraint_match/kernel.py:76",),
         "placement_commit": ("src/repro/kernels/placement_commit/kernel.py:121",),
@@ -2700,7 +3139,8 @@ def main(argv=None) -> int:
                          + launches_sfleet[name] + launches_service[name]
                          + launches_run_fleet[name]
                          + sum(v[name] for v in fam_launches.values())
-                         + launches_sharded[name] + launches_full[name]),
+                         + launches_sharded[name] + launches_full[name]
+                         + launches_mesh_train[name]),
             "launches_by_path": {"simulate": launches[name],
                                  "fleet": launches_fleet[name],
                                  **{f"simulate_{k}": v[name]
@@ -2713,7 +3153,8 @@ def main(argv=None) -> int:
                                  **{k: v[name]
                                     for k, v in fam_launches.items()},
                                  "fleet_sharded": launches_sharded[name],
-                                 "full_cell": launches_full[name]},
+                                 "full_cell": launches_full[name],
+                                 "mesh_train": launches_mesh_train[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -2731,6 +3172,8 @@ def main(argv=None) -> int:
     print("service at cell A: " + json.dumps({**service, "card": smi}))
     print("families: " + json.dumps(families["numbers"]))
     print("sharded fleet and full cell: " + json.dumps(sharded))
+    print("LM on a mesh: " + json.dumps(
+        {"serve": families["numbers"]["mesh_serve"], **mesh_lm}))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

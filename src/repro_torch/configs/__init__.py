@@ -6,7 +6,7 @@ import dataclasses
 import importlib
 from typing import Dict, List
 
-from repro_torch.config import ModelConfig, SimConfig
+from repro_torch.config import SHAPES, ModelConfig, ShapeConfig, SimConfig
 
 ARCH_IDS: List[str] = [
     "musicgen-medium",
@@ -40,6 +40,10 @@ def get_config(arch: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(
         f"repro_torch.configs.{_MODULES[arch]}").CONFIG
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
 
 
 def get_sim_config(name: str = "agocs_cell_a") -> SimConfig:

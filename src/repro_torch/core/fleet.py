@@ -11,8 +11,8 @@ come back stacked on a leading replica axis, as the reference's ``vmap``
 returns them.
 
 The reference's ``fleet_shardings`` and ``lower_fleet`` lower a fleet step
-onto a TPU production mesh; their counterpart on ``torch.distributed``
-belongs to the mesh-sharded fleet's slice (ROADMAP Queue 1).
+onto a TPU production mesh for the dry-run planners; they come with the
+port of those planners (ROADMAP Queue 1).
 """
 from __future__ import annotations
 

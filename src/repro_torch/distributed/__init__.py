@@ -1,3 +1,2 @@
-"""Gradient compression and the fault-tolerant training loop. Meshes,
-sharding rules and collectives wait for a later slice of the port (ROADMAP
-Queue 1)."""
+"""Logical-axis sharding over a ``DeviceMesh`` and the placement trees,
+gradient compression and the fault-tolerant training loop."""

@@ -16,7 +16,10 @@ Guarantees tested in tests/test_torch_fault.py:
   detected and logged.
 
 The runner takes ``device=`` (default: the card; "cpu" when asked for).
-Restoring onto a different mesh waits for the ``distributed/`` slice.
+With ``shardings=`` (the ``(params, opt_state)`` tree of ``NamedSharding``s
+from ``distributed.placement``) a restore places every leaf on that mesh,
+whatever mesh wrote the checkpoint (elastic rescale); run the runner under
+``distributed.sharding.axis_rules`` of that mesh.
 """
 from __future__ import annotations
 
@@ -98,11 +101,20 @@ class FaultTolerantRunner:
         opt_state = optim.init_opt_state(
             params, with_ef=self.tc.grad_compression == "int8_ef")
         start = 0
+        # the last save published (on every rank of a process group: a
+        # barrier), so every rank restores the same step
+        self.mgr.wait()
         latest = self.mgr.latest_step()
         if latest is not None:
             (params, opt_state), meta = self.mgr.restore(
                 (params, opt_state), latest, shardings=self.shardings)
             start = int(meta["step"])
+        elif self.shardings is not None:
+            # a fresh tree takes the same layout (the reference's jit lays
+            # it out itself)
+            from repro_torch.distributed.placement import place_tree
+            params, opt_state = place_tree((params, opt_state),
+                                           self.shardings)
         return params, opt_state, start
 
     def install_preemption_handler(self):
@@ -147,7 +159,6 @@ class FaultTolerantRunner:
                         return self._report(step, preempted=True)
             except SimulatedFailure:
                 # the 'new process' restores from the last durable checkpoint
-                self.mgr.wait()
                 params, opt_state, step = self.init_or_restore()
                 self.losses = self.losses[:step]
         self.mgr.wait()

@@ -14,6 +14,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import logical_constraint
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -56,6 +58,11 @@ def init_from_defs(generator: torch.Generator, defs: Dict[str, ParamDef],
                             device=generator.device, dtype=torch.float32)
             out[name] = x.mul_(scale).to(device=device, dtype=dtype)
     return out
+
+
+def axes_from_defs(defs: Dict[str, ParamDef]
+                   ) -> Dict[str, Tuple[Optional[str], ...]]:
+    return {name: d.axes for name, d in defs.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -110,5 +117,6 @@ def mlp_param_defs(cfg) -> Dict[str, ParamDef]:
 
 def mlp_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
     h = x @ params["wi"].to(x.dtype)
+    h = logical_constraint(h, "batch", "seq", "act_ff")
     h = swiglu(h)
     return h @ params["wo"].to(x.dtype)

@@ -25,6 +25,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.models.layers import ParamDef, rms_norm
 
 
@@ -63,6 +65,27 @@ def _causal_conv(xBC: torch.Tensor, w: torch.Tensor,
         shifted = F.pad(xBC, (0, 0, shift, 0))[:, :L]
         out = out + shifted * w[i].to(xBC.dtype)
     return F.silu(out + b.to(xBC.dtype))
+
+
+def _conv(xBC, w, b):
+    """:func:`_causal_conv`, independent for each batch row. DTensors go
+    through ``local_map`` (batch over the data axes, channels whole; the
+    kernel's and bias's gradients partial over the data ranks): DTensor's
+    pad of a shift gives a gradient of the padded shape in torch 2.11."""
+    if not sharding.is_dtensor(xBC):
+        return _causal_conv(xBC, w, b)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, rules = sharding._current()
+    x_pl = sharding.make_sharding(("batch", None, None), mesh,
+                                  rules).placements
+    rep = tuple(Replicate() for _ in x_pl)
+    part = tuple(Partial() if isinstance(p, Shard) else p for p in x_pl)
+    local_map, kw = sharding.import_shard_map()
+    return local_map(_causal_conv, out_placements=list(x_pl),
+                     in_placements=(x_pl, rep, rep),
+                     in_grad_placements=(x_pl, part, part),
+                     device_mesh=sharding.dtensor_mesh(mesh), **kw)(
+        xBC, w, b)
 
 
 def intra_chunk_decay(cumq: torch.Tensor) -> torch.Tensor:
@@ -131,6 +154,39 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, state
 
 
+def _ssd(xh, dt, A, Bm, Cm, chunk: int):
+    """:func:`ssd_chunked`, which is independent for each (batch row, SSD
+    head). DTensors go through ``local_map``: batch over the data axes,
+    heads over 'model' where the rules split them ('act_ssm_heads'); B and
+    C are read by every head and A by every batch row, so their gradients
+    are partial over the ranks that split those."""
+    if not sharding.is_dtensor(xh):
+        return ssd_chunked(xh, dt, A, Bm, Cm, chunk)
+    from torch.distributed.tensor import Partial, Shard
+    mesh, rules = sharding._current()
+
+    def pl(*axes):
+        return sharding.make_sharding(axes, mesh, rules).placements
+    x_pl = pl("batch", "seq", "act_ssm_heads", None)
+    bc_pl = pl("batch", "seq", None)
+    heads = pl("act_ssm_heads")
+    bc_grad = tuple(Partial() if isinstance(h, Shard) else b
+                    for b, h in zip(bc_pl, heads))
+    # A is read by every batch row: partial over the ranks that split them
+    a_grad = tuple(h if isinstance(h, Shard) else
+                   Partial() if isinstance(b, Shard) else h
+                   for b, h in zip(bc_pl, heads))
+    local_map, kw = sharding.import_shard_map()
+    return local_map(
+        lambda a, b, c, d, e: ssd_chunked(a, b, c, d, e, chunk),
+        out_placements=(x_pl, pl("batch", "act_ssm_heads", None, None)),
+        in_placements=(x_pl, pl("batch", "seq", "act_ssm_heads"), heads,
+                       bc_pl, bc_pl),
+        in_grad_placements=(x_pl, pl("batch", "seq", "act_ssm_heads"),
+                            a_grad, bc_grad, bc_grad),
+        device_mesh=sharding.dtensor_mesh(mesh), **kw)(xh, dt, A, Bm, Cm)
+
+
 def apply(params, cfg, x: torch.Tensor, *, return_state: bool = False):
     """Train/prefill forward. x: (B, L, d)."""
     Bb, L, d = x.shape
@@ -138,14 +194,15 @@ def apply(params, cfg, x: torch.Tensor, *, return_state: bool = False):
 
     zxbcdt = x @ params["in_proj"].to(x.dtype)
     z, xBC, dt = _split_proj(cfg, zxbcdt)
-    xBC = _causal_conv(xBC, params["conv_w"], params["conv_b"])
+    xBC = _conv(xBC, params["conv_w"], params["conv_b"])
     xs, Bm, Cm = xBC[..., :din], xBC[..., din:din + n], xBC[..., din + n:]
+    xs = logical_constraint(xs, "batch", "seq", "ssm_inner")
 
     dt_f = F.softplus(dt.float() + params["dt_bias"].float())
     A = -torch.exp(params["A_log"].float())
 
     xh = xs.reshape(Bb, L, h, p)
-    y, state = ssd_chunked(xh, dt_f, A, Bm, Cm, cfg.ssm_chunk)
+    y, state = _ssd(xh, dt_f, A, Bm, Cm, cfg.ssm_chunk)
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(Bb, L, din)
 
@@ -172,6 +229,13 @@ def init_state(cfg, batch: int, device=None) -> Dict[str, torch.Tensor]:
                            device=device),
         "conv": torch.zeros((batch, cfg.ssm_conv - 1, din + 2 * n),
                             dtype=torch.float32, device=device),
+    }
+
+
+def state_axes(cfg) -> Dict[str, Tuple[Optional[str], ...]]:
+    return {
+        "ssm": ("batch", "act_ssm_heads", None, None),
+        "conv": ("batch", None, "conv_ch"),
     }
 
 

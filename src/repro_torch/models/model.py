@@ -23,6 +23,12 @@ The cache is a tuple over pattern positions: ``{"k", "v"}`` (R, B, max_seq,
 KH, hd) at an attention position, ``{"ssm", "conv"}`` (R, B, H, P, N) and
 (R, B, K-1, CH) f32 at a Mamba position; batch is axis 1 in all four.
 :func:`decode_step` writes both kinds in place.
+
+Under an active mesh (``distributed.sharding.axis_rules``) parameters,
+batches and caches are DTensors placed by ``distributed.placement``, and
+activations are constrained where the reference constrains them
+(:func:`param_logical_axes`, :func:`cache_logical_axes`). The embedding's
+row gather and kernel G take local tensors and run inside ``local_map``.
 """
 from __future__ import annotations
 
@@ -32,9 +38,12 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.kernels.fused_ce.ops import FusedCEMean
 from repro_torch.models import attention, mamba, moe
-from repro_torch.models.layers import (ParamDef, init_from_defs, mlp_apply,
+from repro_torch.models.layers import (ParamDef, axes_from_defs,
+                                       init_from_defs, mlp_apply,
                                        mlp_param_defs, rms_norm, torch_dtype)
 
 Params = Dict[str, Any]
@@ -89,6 +98,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((cfg.d_model, cfg.n_codebooks * vp), 0.02)
     return params
+
+
+def param_logical_axes(cfg: ModelConfig) -> Params:
+    axes: Params = {"embed": ("codebook", "vocab", "embed"),
+                    "final_norm": ("embed",)}
+    axes["blocks"] = [
+        {g: {n: ("stack",) + ax for n, ax in axes_from_defs(defs).items()}
+         for g, defs in _block_defs(cfg, mixer, mlp).items()}
+        for mixer, mlp in cfg.layer_pattern()]
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
 
 
 def _expected_shapes(cfg: ModelConfig) -> Params:
@@ -214,10 +235,33 @@ def embed_tokens(params: Params, cfg: ModelConfig,
         tokens = tokens[..., None]
     tokens = tokens.long()
     dt = torch_dtype(cfg.dtype)
-    x = params["embed"][0][tokens[..., 0]].to(dt)
+    x = _rows(params["embed"][0], tokens[..., 0]).to(dt)
     for k in range(1, cfg.n_codebooks):
-        x = x + params["embed"][k][tokens[..., k]].to(dt)
-    return x
+        x = x + _rows(params["embed"][k], tokens[..., k]).to(dt)
+    return logical_constraint(x, "batch", "seq", "act_embed")
+
+
+def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``. Under a mesh the gather (an advanced index, which
+    DTensor has no strategy for on a sharded table) runs in ``local_map``
+    on the whole table and this rank's tokens; the table's gradient is
+    partial over the mesh dims that split the tokens."""
+    mesh, rules = sharding._current()
+    if mesh is None or not sharding.is_dtensor(table):
+        return table[idx]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    idx = logical_constraint(idx, "batch", "seq")     # plain tokens placed
+    tok_sh = sharding.make_sharding(("batch", "seq"), mesh, rules)
+    tok = tok_sh.placements
+    out = sharding.make_sharding(("batch", "seq", None), mesh,
+                                 rules).placements
+    whole = tuple(Replicate() for _ in tok)
+    grad = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                 for p in tok)
+    local_map, kw = sharding.import_shard_map()
+    return local_map(lambda t, i: t[i], out_placements=list(out),
+                     in_placements=(whole, tok), in_grad_placements=(grad, tok),
+                     device_mesh=tok_sh.device_mesh, **kw)(table, idx)
 
 
 def logits_from_hidden(params: Params, cfg: ModelConfig,
@@ -233,7 +277,11 @@ def logits_from_hidden(params: Params, cfg: ModelConfig,
     else:
         logits = (x.float() @ params["lm_head"].float()).reshape(
             B, S, cfg.n_codebooks, vp)
+    logits = logical_constraint(logits, "batch", "seq", None, "vocab")
     if vp != cfg.vocab_size:
+        if sharding.is_dtensor(logits):     # no in-place fill strategy
+            pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
+            return logits.masked_fill(pad, -1e30)
         logits[..., cfg.vocab_size:] = -1e30
     return logits
 
@@ -256,7 +304,8 @@ def _apply_block(cfg, pos_params, mixer: str, mlp: str, x, positions, aux):
         x = x + attention.apply(pos_params["mixer"], cfg, h, positions)
     else:
         x = x + mamba.apply(pos_params["mixer"], cfg, h)
-    return _mlp_residual(cfg, pos_params, mlp, x, aux)
+    x, aux = _mlp_residual(cfg, pos_params, mlp, x, aux)
+    return logical_constraint(x, "batch", "seq", "act_embed"), aux
 
 
 def _prefix(params, cfg, tokens, vision_embeds):
@@ -294,6 +343,9 @@ def _remat(fn, policy: str):
         return fn
     from torch.utils.checkpoint import checkpoint
     kw = {"context_fn": _save_matmul_outputs} if policy == "minimal" else {}
+    # the backward recomputes fn in autograd's thread on the card, under
+    # the mesh rules of the forward
+    fn = sharding.under_current_rules(fn)
     return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
@@ -347,6 +399,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if mask is not None:
         valid = valid & mask[..., None].bool()
     safe = labels.clamp_min(0).long()
+    if sharding.is_dtensor(logits):
+        # the label gather reads the whole vocab row (DTensor's gather of
+        # a vocab-split operand masks with the wrong rank)
+        logits = logical_constraint(logits, "batch", "seq", None, None)
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, safe[..., None])[..., 0]
     nll = torch.where(valid, lse - picked, torch.zeros_like(lse))
@@ -400,12 +456,51 @@ def cross_entropy_chunked(x: torch.Tensor, w_vd: torch.Tensor,
     ``n_chunks``); on a CPU tensor the copy of the reference's scan,
     :func:`cross_entropy_chunked_plain`. Both keep the logits in f32, as
     the reference's Pallas kernel and its compiled scan do."""
+    if sharding.is_dtensor(x):
+        return _ce_on_mesh(x, w_vd, labels, vocab_size, n_chunks)
     if x.device.type != "cuda":
         return cross_entropy_chunked_plain(x, w_vd, labels, vocab_size,
                                            n_chunks)
     return FusedCEMean.apply(x.contiguous(), w_vd.contiguous(),
                              labels.to(torch.int32).contiguous(),
                              vocab_size, n_chunks)
+
+
+def _ce_on_mesh(x, w_vd, labels, vocab_size: int, n_chunks: int):
+    """:func:`cross_entropy_chunked` of DTensors: each rank's token rows
+    against the whole (Vp, d) head weight, inside ``local_map``. Where the
+    rules split the tokens, each rank's mean times its count is summed
+    over the ranks and divided by the global count; else the local mean
+    is the mean."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, rules = sharding._current()
+    labels = logical_constraint(labels, "tokens")     # plain labels placed
+    rows_sh = sharding.make_sharding(("tokens", None), mesh, rules)
+    rows, dmesh = rows_sh.placements, rows_sh.device_mesh
+    tok = sharding.make_sharding(("tokens",), mesh, rules).placements
+    whole = tuple(Replicate() for _ in rows)
+    split = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                  for p in rows)
+    local_map, kw = sharding.import_shard_map()
+    if split == whole:
+        return local_map(
+            lambda a, w, lab: cross_entropy_chunked(a, w, lab, vocab_size,
+                                                    n_chunks),
+            out_placements=list(whole), in_placements=(rows, whole, tok),
+            in_grad_placements=(rows, split, tok), device_mesh=dmesh,
+            **kw)(x, w_vd, labels)
+
+    def local_sum(a, w, lab):
+        mean = cross_entropy_chunked(a, w, lab, vocab_size, n_chunks)
+        return mean * (lab >= 0).sum().clamp_min(1)
+    total = local_map(local_sum, out_placements=list(split),
+                      in_placements=(rows, whole, tok),
+                      in_grad_placements=(rows, split, tok),
+                      device_mesh=dmesh, **kw)(x, w_vd, labels)
+    # (replicated as a DTensor, not full_tensor(): the loss stays a DTensor,
+    # so no plain tensor meets a DTensor gradient in the backward)
+    total = total.redistribute(dmesh, whole)
+    return total / (labels >= 0).sum().clamp_min(1)
 
 
 def _head_weight(params: Params, cfg: ModelConfig,
@@ -458,18 +553,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     (real tensors, since decode writes them in place)."""
     R = cfg.n_repeats
     cache = []
-    for mixer, _ in cfg.layer_pattern():
+    for mixer, axes in zip((m for m, _ in cfg.layer_pattern()),
+                           cache_logical_axes(cfg)):
         if mixer == "attn":
             shape = (R, batch, max_seq, cfg.n_kv_heads,
                      cfg.resolved_head_dim)
-            cache.append({n: torch.zeros(shape, dtype=dtype, device=device)
+            cache.append({n: sharding.zeros(shape, axes[n], dtype, device)
                           for n in ("k", "v")})
         else:
-            cache.append({n: torch.zeros((R,) + t.shape, dtype=t.dtype,
-                                         device=device)
+            cache.append({n: sharding.zeros((R,) + t.shape, axes[n],
+                                            t.dtype, device)
                           for n, t in mamba.init_state(cfg, batch,
                                                        "meta").items()})
     return tuple(cache)
+
+
+def cache_logical_axes(cfg: ModelConfig) -> Tuple[Any, ...]:
+    axes = []
+    for mixer, _ in cfg.layer_pattern():
+        ax = (attention.cache_axes(cfg) if mixer == "attn"
+              else mamba.state_axes(cfg))
+        axes.append({k: ("stack",) + v for k, v in ax.items()})
+    return tuple(axes)
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -518,7 +623,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             else:
                 out, st = mamba.apply(p["mixer"], cfg, h, return_state=True)
             for n, t in st.items():
-                cache[pos][n][r] = t
+                sharding.write_slice(cache[pos][n], 0, r, t[None])
             x, _ = _mlp_residual(cfg, p, mlp, x + out, 0.0)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_from_hidden(params, cfg, x[:, -1:]), cache
@@ -533,6 +638,8 @@ def _attn_prefill(p, cfg, h, positions, max_seq, cache_dtype):
     q, k, v = attention._project_qkv(p, cfg, h, positions)
     out = attention._attend(p, cfg, q, k, v)
     kv = attention.init_cache(cfg, B, max_seq, cache_dtype, h.device)
-    kv["k"][:, :S] = k
-    kv["v"][:, :S] = v
+    for n, t in (("k", k), ("v", v)):
+        sharding.write_slice(kv[n], 1, 0, t.to(cache_dtype))
+        kv[n] = logical_constraint(kv[n], "batch", "seq_kv", "act_kv",
+                                   "head_dim")
     return out, kv

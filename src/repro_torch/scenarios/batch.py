@@ -35,11 +35,7 @@ does not depend on its rank: sharding is a pure layout change, bitwise.
 """
 from __future__ import annotations
 
-import atexit
 import dataclasses
-import os
-import shutil
-import tempfile
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -51,6 +47,7 @@ from repro_torch.core.events import EventKind, EventWindow
 from repro_torch.core.state import SimState, init_state
 from repro_torch.device import resolve_device
 from repro_torch.kernels.placement_commit.ops import lane_const
+from repro_torch.launch.mesh import start_world, world_size
 from repro_torch.scenarios import perturb
 from repro_torch.scenarios.spec import ScenarioKnobs
 from repro_torch.sched import (DispatchTable, base_pass, finalize,
@@ -59,35 +56,6 @@ from repro_torch.sched import (DispatchTable, base_pass, finalize,
 
 
 FLEET_AXIS = "data"   # the mesh axis the scenario lanes shard over
-
-
-def _world_size() -> int:
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
-
-
-def _start_world(dev: torch.device):
-    """The default process group of a fleet mesh: from the ``torchrun``
-    environment when there is one, else a world of 1 over a FileStore in
-    a temporary directory. On the card each rank takes ``cuda:LOCAL_RANK``
-    and NCCL, on the CPU gloo."""
-    import torch.distributed as dist
-    kw = {}
-    if dev.type == "cuda":
-        local = int(os.environ.get("LOCAL_RANK", "0"))
-        torch.cuda.set_device(local)
-        kw["device_id"] = torch.device("cuda", local)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
-    if "MASTER_ADDR" in os.environ and "RANK" in os.environ:
-        dist.init_process_group(backend, init_method="env://", **kw)
-        return
-    d = tempfile.mkdtemp(prefix="fleet_mesh.")
-    atexit.register(shutil.rmtree, d, ignore_errors=True)
-    dist.init_process_group(backend,
-                            store=dist.FileStore(os.path.join(d, "store"), 1),
-                            rank=0, world_size=1, **kw)
 
 
 def fleet_mesh(n_devices: Optional[int] = None, device=None):
@@ -107,7 +75,7 @@ def fleet_mesh(n_devices: Optional[int] = None, device=None):
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     dev = resolve_device(device)
-    world = _world_size()
+    world = world_size()
     n = world if n_devices is None else n_devices
     if n < 1:
         raise ValueError(f"fleet_mesh needs at least 1 device, got {n}")
@@ -116,7 +84,7 @@ def fleet_mesh(n_devices: Optional[int] = None, device=None):
                          "(one process a device: launch with torchrun "
                          f"--nproc-per-node {n})")
     if not dist.is_initialized():
-        _start_world(dev)
+        start_world(dev)
     return init_device_mesh(dev.type, (n,), mesh_dim_names=(FLEET_AXIS,))
 
 

@@ -4,6 +4,11 @@ A copy of ``repro.serve.engine`` in PyTorch: ``make_prefill_step`` (with
 the batch-microbatched path), ``make_decode_step``, ``sample_greedy`` and
 ``ServingEngine``. PyTorch runs eagerly, so the steps are plain functions
 where the reference jits them.
+
+On a mesh the engine runs under ``distributed.sharding.axis_rules`` (in
+'serve' or 'serve_seq' mode, as ``placement.choose_serve_mode`` decides)
+with parameters placed by ``placement.param_shardings``; the prefill
+allocates its cache by ``model.cache_logical_axes``.
 """
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import model
 
 
@@ -55,6 +61,11 @@ def make_decode_step(cfg: ModelConfig):
 def sample_greedy(logits: torch.Tensor) -> torch.Tensor:
     """logits: (B, 1, K, Vp) -> tokens (B, 1) or (B, 1, K) int32; the first
     index wins a tie."""
+    if sharding.is_dtensor(logits):
+        # argmax: DTensor's strategy for a split vocab dim fails where
+        # another mesh dim is Replicate ('serve_seq'), so the vocab is
+        # gathered first (B x Vp values a step)
+        logits = sharding.gather_dim(logits, -1)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     if tok.shape[-1] == 1:
         tok = tok[..., 0]
@@ -80,12 +91,18 @@ class ServingEngine:
         self._prefill = make_prefill_step(cfg, max_seq)
         self._decode = make_decode_step(cfg)
 
-    @torch.inference_mode()
     def generate(self, tokens: torch.Tensor, n_tokens: int,
                  vision_embeds: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
         """tokens: (B, S[, K]) prompt; returns (B, n_tokens[, K])
-        completions (int32)."""
+        completions (int32). Runs under ``inference_mode``, or under
+        ``no_grad`` while a mesh is active (DTensor makes views, which
+        inference tensors do not allow)."""
+        mesh, _ = sharding._current()
+        with (torch.inference_mode() if mesh is None else torch.no_grad()):
+            return self._generate(tokens, n_tokens, vision_embeds)
+
+    def _generate(self, tokens, n_tokens, vision_embeds):
         S = tokens.shape[1]
         logits, cache = self._prefill(self._run_params, tokens,
                                       vision_embeds)

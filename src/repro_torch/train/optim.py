@@ -7,6 +7,12 @@ full width (a stacked MLP leaf of qwen3-4b is 7.2 GB in f32) builds no
 leaf-sized temporaries: :func:`clip_by_global_norm` scales the gradients in
 place, :func:`adamw_update` overwrites the parameters, the gradients and
 both moments and returns them. The order of arithmetic is the reference's.
+
+On a mesh the leaves are DTensors with the same placements (params, grads
+and both moments, ``distributed.placement.opt_shardings``): the update is
+elementwise, so it runs on each rank's local block, and the global norm
+sums each block's squares and then adds them over the mesh dims that
+split the leaf.
 """
 from __future__ import annotations
 
@@ -28,8 +34,15 @@ class OptState(NamedTuple):
     ef: Any = None        # error-feedback buffers (grad compression), optional
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local block (the same storage); a tensor as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def init_opt_state(params, with_ef: bool = False) -> OptState:
     def zeros(p):
+        if hasattr(p, "to_local"):          # a DTensor: the same placements
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     first = leaves(params)[0]
     return OptState(step=torch.zeros((), dtype=torch.int32,
@@ -55,11 +68,25 @@ def global_norm(tree) -> torch.Tensor:
     sq = 0
     for x in leaves(tree):
         s = torch.zeros((), dtype=torch.float32, device=x.device)
-        for c in _slices(x):
+        for c in _slices(_local(x)):
             c = c.float()
             s = s + torch.dot(c, c)
-        sq = sq + s
+        sq = sq + _sum_over_blocks(x, s)
     return torch.sqrt(sq)
+
+
+def _sum_over_blocks(x, s: torch.Tensor) -> torch.Tensor:
+    """``s``, a sum over x's local block, summed over the mesh dims that
+    split x (as it is for a plain tensor or an unsplit DTensor)."""
+    if not hasattr(x, "to_local"):
+        return s
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    pls = [Partial() if isinstance(p, Shard) else Replicate()
+           for p in x.placements]
+    if not any(isinstance(p, Partial) for p in pls):
+        return s
+    return DTensor.from_local(s, x.device_mesh, pls,
+                              run_check=False).full_tensor()
 
 
 def clip_by_global_norm(grads, max_norm: float
@@ -72,7 +99,7 @@ def clip_by_global_norm(grads, max_norm: float
         if g.dtype != torch.float32:
             raise TypeError("clip_by_global_norm scales f32 gradients in "
                             f"place, got {g.dtype}")
-        g.mul_(scale)
+        _local(g).mul_(scale)
     return grads, norm
 
 
@@ -83,10 +110,10 @@ def adamw_update(params, grads, state: OptState, tc: TrainConfig
     the reference, the returned state carries no ``ef``."""
     grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
     step = state.step + 1
-    lr = lr_schedule(step, tc)
+    lr = lr_schedule(_local(step), tc)
     b1, b2 = tc.b1, tc.b2
-    bc1 = 1.0 - torch.pow(b1, step.float())
-    bc2 = 1.0 - torch.pow(b2, step.float())
+    bc1 = 1.0 - torch.pow(b1, _local(step).float())
+    bc2 = 1.0 - torch.pow(b2, _local(step).float())
 
     def upd_(p, g, m, v):
         m.mul_(b1).add_(g * (1 - b1))                # b1 m + (1 - b1) g
@@ -100,6 +127,7 @@ def adamw_update(params, grads, state: OptState, tc: TrainConfig
 
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.mu),
                           leaves(state.nu)):
+        p, g, m, v = _local(p), _local(g), _local(m), _local(v)
         for sl in zip(_slices(p), _slices(g), _slices(m), _slices(v)):
             upd_(*sl)
     metrics = {"grad_norm": gnorm, "lr": lr}

@@ -15,6 +15,11 @@ in place before each step: autograd then adds every slice's gradient into
 the buffer as soon as it exists. The gradient tree the optimizer sees is
 that buffer, in the reference's layout; with f32 parameters (every
 config) it is the reference's f32 accumulation over microbatches.
+
+On a mesh (parameters placed as DTensors, the step run under
+``distributed.sharding.axis_rules``) the same holds on each rank's local
+block: the per-repeat leaves are DTensors made from views of the local
+stacked storage, and their gradients from views of the local buffer.
 """
 from __future__ import annotations
 
@@ -37,11 +42,28 @@ def _microbatch(batch: Dict[str, torch.Tensor], m: int
             for k, x in batch.items()}
 
 
+def _unbind(t: torch.Tensor) -> List[torch.Tensor]:
+    """Views of ``t``'s slices along dim 0. A DTensor (never split along
+    its stack dim) gives DTensors over views of its local storage."""
+    if not hasattr(t, "to_local"):
+        return list(t.unbind(0))
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.distributed.sharding import contiguous_stride
+    if any(isinstance(p, Shard) and p.dim == 0 for p in t.placements):
+        raise ValueError("a stacked leaf split along its stack dim")
+    pls = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+           for p in t.placements]
+    shape = t.shape[1:]
+    return [DTensor.from_local(v, t.device_mesh, pls, run_check=False,
+                               shape=shape, stride=contiguous_stride(shape))
+            for v in t.to_local().unbind(0)]
+
+
 def _split_leaf(p: torch.Tensor, g: torch.Tensor, cast) -> List:
     """Per-index autograd leaves of the stacked ``p`` whose gradients land
     in the matching slices of ``g``."""
     out = []
-    for v, gv in zip(p.detach().unbind(0), g.unbind(0)):
+    for v, gv in zip(_unbind(p.detach()), _unbind(g)):
         v.requires_grad_()
         v.grad = gv
         out.append(cast(v))
@@ -89,7 +111,9 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
         g = held["grads"]
         if g is not None and all(
                 a.shape == b.shape and a.dtype == b.dtype
-                and a.device == b.device
+                and a.device == b.device and type(a) is type(b)
+                and getattr(a, "placements", None)
+                == getattr(b, "placements", None)
                 for a, b in zip(leaves(g), leaves(params))):
             for t in leaves(g):
                 t.zero_()
@@ -133,14 +157,22 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
-        return params, opt_state, metrics
+        return params, opt_state, _global(metrics)
 
     return train_step
+
+
+def _global(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each metric as a plain tensor of its global value: on a mesh a loss
+    is a DTensor whose sum over the data ranks may still be pending
+    (``Partial``), and ``float()`` of it would read one rank's part."""
+    return {k: v.full_tensor() if hasattr(v, "full_tensor") else v
+            for k, v in metrics.items()}
 
 
 def make_eval_step(cfg: ModelConfig):
     def eval_step(params, batch):
         with torch.no_grad():
             loss, metrics = model.loss_fn(params, cfg, batch)
-        return {"loss": loss, **metrics}
+        return _global({"loss": loss, **metrics})
     return eval_step

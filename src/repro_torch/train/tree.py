@@ -50,19 +50,22 @@ def map_tree(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
-def map_with_path(fn: Callable, tree, prefix: str = ""):
-    """``fn(path, leaf)`` over ``tree``, paths as :func:`flatten_with_path`
-    writes them."""
+def map_with_path(fn: Callable, tree, *rest, prefix: str = ""):
+    """``fn(path, leaf, *rest_leaves)`` over ``tree`` and trees of its
+    structure, paths as :func:`flatten_with_path` writes them."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: map_with_path(fn, v, f"{prefix}[{k!r}]")
+        return {k: map_with_path(fn, v, *[r[k] for r in rest],
+                                 prefix=f"{prefix}[{k!r}]")
                 for k, v in tree.items()}
     if _is_namedtuple(tree):
         return type(tree)(*[map_with_path(fn, getattr(tree, f),
-                                          f"{prefix}.{f}")
+                                          *[getattr(r, f) for r in rest],
+                                          prefix=f"{prefix}.{f}")
                             for f in tree._fields])
     if isinstance(tree, (list, tuple)):
-        return type(tree)(map_with_path(fn, t, f"{prefix}[{i}]")
+        return type(tree)(map_with_path(fn, t, *[r[i] for r in rest],
+                                        prefix=f"{prefix}[{i}]")
                           for i, t in enumerate(tree))
-    return fn(prefix, tree)
+    return fn(prefix, tree, *rest)

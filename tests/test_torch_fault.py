@@ -164,11 +164,32 @@ def test_ckpt_atomicity_no_torn_reads():
 
 
 def test_ckpt_restore_with_shardings_waits_for_the_mesh_slice():
-    with tempfile.TemporaryDirectory() as d:
-        mgr = CheckpointManager(d, keep=3, async_save=False)
-        mgr.save(1, _tree(1))
-        with pytest.raises(NotImplementedError):
-            mgr.restore(_tree(0), shardings={"w": None})
+    """(Named when restoring onto a mesh raised.) A restore with
+    shardings on a world of 1 places each leaf as a DTensor laid out by
+    its sharding, bitwise the saved leaf; a ``None`` sharding leaves a
+    plain tensor."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import NamedSharding, P
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, 1, device="cpu")
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            mgr = CheckpointManager(d, keep=3, async_save=False)
+            mgr.save(1, _tree(1))
+            sh = {"w": NamedSharding(mesh, P("data", "model")),
+                  "nest": {"b": NamedSharding(mesh, P(None)), "s": None}}
+            restored, meta = mgr.restore(_tree(0), shardings=sh)
+        want = _tree(1)
+        assert meta["step"] == 1
+        for leaf, w, s in ((restored["w"], want["w"], sh["w"]),
+                           (restored["nest"]["b"], want["nest"]["b"],
+                            sh["nest"]["b"])):
+            assert tuple(leaf.placements) == s.placements
+            assert torch.equal(leaf.to_local(), w)
+        assert not hasattr(restored["nest"]["s"], "placements")
+        assert torch.equal(restored["nest"]["s"], want["nest"]["s"])
+    finally:
+        dist.destroy_process_group()
 
 
 def test_ckpt_carries_across_between_the_packages():

@@ -322,8 +322,21 @@ def test_int8_ef_matches_reference_and_drops_ef_like_it():
     _, tst2, _ = optim.adamw_update(tp, td, tst, tc)
     _, jst2, _ = ref_optim.adamw_update(jp, jd, jst, ref_tc)
     assert tst2.ef is None and jst2.ef is None
-    with pytest.raises(NotImplementedError):
-        compression.compressed_psum(torch.zeros(3), "data")
+    # compressed_psum on a world of 1 (gloo): one rank's quantized value,
+    # bitwise the numpy oracle
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, 1, device="cpu")
+    try:
+        got = compression.compressed_psum(torch.from_numpy(g["a"]), "data",
+                                          mesh)
+    finally:
+        dist.destroy_process_group()
+    scale = np.float32(np.abs(g["a"]).max()) / np.float32(127.0) + \
+        np.float32(1e-12)
+    want = np.clip(np.round(g["a"] / scale), -127, 127).astype(
+        np.int32).astype(np.float32) * scale
+    assert np.array_equal(got.numpy(), want)
 
 
 # --- data --------------------------------------------------------------------
