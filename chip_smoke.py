@@ -192,11 +192,23 @@ Phases, each printing its own lines:
      memory differs), the runner restoring onto the mesh through an
      injected crash at reduced width, and ``compressed_psum`` over NCCL
      bitwise a numpy oracle;
-  14. a ``kernels:`` status line, phase 6's, phase 10's, phase 11's,
-     phase 12's and phase 13's numbers as JSON lines, and the JSON kernel
-     table (seven kernels, launches by path; F's body and tensor-core
-     launches, F at qwen2-moe's and G at mamba2's shapes, B and D's
-     cluster size; E's surrogate shape).
+  14. the dry-run planners (fake worlds; every number beside the card,
+     none a claim): phase 8's step planned on a fake (1, 1) mesh with fake
+     CUDA tensors, held to phase 8's real step (one more step counted by
+     ``FlopCounterMode`` with G by its formula, its peak memory, the traced
+     step's device time): planned flops equal exactly, planned peak within
+     0.8-1.25x ``max_memory_allocated``, the roofline bound max(compute,
+     memory) at most 1.05x the device time; qwen3-4b ``train_4k`` and
+     qwen2-moe-a2.7b ``decode_32k`` on 16x16 (fake worlds of 256 in their
+     own processes, started before phase 11): fake-pass seconds, live
+     GiB/dev, fits, the three terms, the dominant one; ``lower_fleet`` at
+     cell A (greedy, 8 of phase 5's windows) on 16x16, rank 0's replica
+     bitwise ``run_fleet``'s replica 0, its kernels' launches counted;
+  15. a ``kernels:`` status line, phase 6's, phase 10's, phase 11's,
+     phase 12's, phase 13's and phase 14's numbers as JSON lines, and the
+     JSON kernel table (seven kernels, launches by path; F's body and
+     tensor-core launches, F at qwen2-moe's and G at mamba2's shapes, B and
+     D's cluster size; E's surrogate shape).
 
 The seven CUDA kernels are built at first use from every
 ``src/repro_torch/csrc/*.cu`` (one nvcc per source, all started together)
@@ -212,6 +224,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -1345,6 +1358,160 @@ def mesh_train_phase(torch, dev, smi, reset_counts, counters, tcfg,
     print(f"phase 13 (training, runner, compressed_psum): "
           f"{nums['phase_s']:.1f}s [{smi}]")
     return nums
+
+
+PLAN_CELLS = (("qwen3-4b", "train_4k"), ("qwen2-moe-a2.7b", "decode_32k"))
+PLAN_FLEET_WINDOWS = 8        # lower_fleet's windows at cell A (phase 14)
+PLAN_TIMEOUT_S = 900          # the production plans' processes
+
+
+def start_production_plans(out_dir: str) -> list:
+    """Phase 14's production plans (``PLAN_CELLS`` on the 16x16 mesh, a
+    fake world of 256, fake tensors on the card) through the dry-run CLI,
+    one process a cell, started early so that their host time overlaps
+    phases 11-13; :func:`planner_phase` waits for them."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape in PLAN_CELLS:
+        log = open(Path(out_dir) / f"{arch}__{shape}.log", "w")
+        procs.append((arch, shape, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", out_dir], env=env,
+            stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT))))
+    return procs
+
+
+def planner_phase(torch, dev, smi, reset_counts, counters, tcfg, phase8,
+                  fcfg, fleet_ws, plan_procs, plan_dir: str) -> dict:
+    """Phase 14: the dry-run planners. (a) Phase 8's configuration planned
+    on a fake (1, 1) mesh with fake CUDA tensors, held to phase 8's real
+    step: the planned flops equal its ``FlopCounterMode`` count exactly,
+    the planned peak lies within 0.8-1.25x its ``max_memory_allocated``,
+    the roofline bound max(compute, memory) is at most 1.05x its device
+    time. (b) The production plans of ``PLAN_CELLS`` on 16x16 (their
+    processes' artifacts), and ``lower_fleet`` at cell A (greedy, 8
+    windows) on 16x16, rank 0's replica bitwise ``run_fleet``'s replica 0.
+    Every number printed beside the card; none is a claim. Returns its
+    launches and numbers."""
+    import torch.distributed as dist
+    from repro_torch.config import ShapeConfig
+    from repro_torch.core import fleet as fleet_mod
+    from repro_torch.core.events import stack_windows, window_to_torch
+    from repro_torch.launch import dryrun, hardware
+    from repro_torch.launch.mesh import make_production_mesh
+
+    t_phase = time.time()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    print(f"planner: hardware.HBM_BYTES {hardware.HBM_BYTES} "
+          f"({hardware.CARD}); this card's total_memory {total} [{smi}]")
+    nums = {"card": smi, "hbm_bytes": hardware.HBM_BYTES,
+            "total_memory": total}
+
+    # (a) the world of 1 against phase 8's real step
+    shape = ShapeConfig("phase8_train", "train", TRAIN_SEQ, TRAIN_B)
+    with dryrun.fake_world(1):
+        mesh = dryrun.plan_mesh((1, 1), dev)
+        art = dryrun.plan_cell(tcfg, shape, mesh, "1x1", dev)
+    assert not dist.is_initialized()
+    terms = art["roofline"]
+    bound_ms = max(terms["compute_s"], terms["memory_s"]) * 1e3
+    peak_ratio = art["live_bytes_per_dev"] / phase8["step_peak_bytes"]
+    w1 = dict(planned_flops=art["hlo_flops_per_dev"],
+              full_pass_flops=art["full_program_cost_once"]["flops"],
+              measured_flops=phase8["flops"],
+              planned_peak_gib=art["live_bytes_per_dev"] / 2 ** 30,
+              measured_peak_gib=phase8["step_peak_bytes"] / 2 ** 30,
+              peak_ratio=peak_ratio, compute_ms=terms["compute_s"] * 1e3,
+              memory_ms=terms["memory_s"] * 1e3, bound_ms=bound_ms,
+              device_ms=phase8["step_device_ms"],
+              bound_over_device=bound_ms / phase8["step_device_ms"],
+              plan_s=art["compile_s"] + art["probe_s"])
+    print(f"planner, world of 1 ({tcfg.name}, 4 x 512, chunked_ce, "
+          f"{tcfg.attention_impl} attention, {tcfg.remat_policy} remat): "
+          f"planned flops {w1['planned_flops']:.6e} (full pass "
+          f"{w1['full_pass_flops']:.6e}) == FlopCounterMode's count of "
+          f"phase 8's step {w1['measured_flops']:.6e}; planned peak "
+          f"{w1['planned_peak_gib']:.3f} GiB against max_memory_allocated "
+          f"{w1['measured_peak_gib']:.3f} (ratio {peak_ratio:.4f}, 0.8-1.25);"
+          f" roofline bound {bound_ms:.3f} ms (compute "
+          f"{w1['compute_ms']:.3f}, memory {w1['memory_ms']:.3f}) against "
+          f"the step's device time {w1['device_ms']:.3f} ms (ratio "
+          f"{w1['bound_over_device']:.4f}, <= 1.05); planned in "
+          f"{w1['plan_s']:.1f}s [{smi}]")
+    assert w1["planned_flops"] == w1["full_pass_flops"] == \
+        w1["measured_flops"], w1
+    assert 0.8 <= peak_ratio <= 1.25, w1
+    assert w1["bound_over_device"] <= 1.05, w1
+    nums["world_of_one"] = w1
+
+    # (b) the production plans, from their processes
+    nums["production"] = {}
+    for arch, shape_name, log, proc in plan_procs:
+        proc.wait(timeout=PLAN_TIMEOUT_S)
+        log.close()
+        text = (Path(plan_dir) / f"{arch}__{shape_name}.log").read_text()
+        assert proc.returncode == 0, f"plan {arch} {shape_name}:\n{text}"
+        a = json.loads((Path(plan_dir) /
+                        f"{arch}__{shape_name}.json").read_text())
+        t = a["roofline"]
+        row = dict(compile_s=a["compile_s"], probe_s=a["probe_s"],
+                   live_gib=a["live_bytes_per_dev"] / 2 ** 30,
+                   fits=a["fits_hbm"], compute_ms=t["compute_s"] * 1e3,
+                   memory_ms=t["memory_s"] * 1e3,
+                   collective_ms=t["collective_s"] * 1e3,
+                   dominant=a["dominant"],
+                   collectives={k: v["count"]
+                                for k, v in a["collectives"].items()},
+                   roofline_fraction=a["roofline_fraction"])
+        nums["production"][f"{arch} {shape_name}"] = row
+        print(f"planner, {arch} {shape_name} on 16x16: compile "
+              f"{row['compile_s']:.1f}s (the fake pass), probes "
+              f"{row['probe_s']:.1f}s, live {row['live_gib']:.2f} GiB/dev, "
+              f"fits {row['fits']}, compute {row['compute_ms']:.2f} ms, "
+              f"memory {row['memory_ms']:.2f} ms, collective "
+              f"{row['collective_ms']:.2f} ms, dominant {row['dominant']}, "
+              f"collectives {row['collectives']} [{smi}]")
+
+    # lower_fleet at cell A on 16x16: rank 0's replica against run_fleet's
+    w8 = window_to_torch(stack_windows(fleet_ws[:PLAN_FLEET_WINDOWS]), dev)
+    reset_counts()
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh(device=dev)
+        plan = fleet_mod.lower_fleet(fcfg, mesh, "greedy",
+                                     n_windows=PLAN_FLEET_WINDOWS, windows=w8)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    assert not dist.is_initialized()
+    assert all(launches[k] == v for k, v in plan.kernel_launches.items()), \
+        (launches, plan.kernel_launches)
+    assert plan.replicas == [0], plan.replicas
+    states, stats = fleet_mod.run_fleet(w8, fcfg, "greedy", n_replicas=1)
+    for f in states._fields:
+        assert torch.equal(getattr(plan.states, f), getattr(states, f)), f
+    for k in stats:
+        assert torch.equal(plan.stats[k], stats[k]), k
+    cost, mem = plan.cost_analysis(), plan.memory_analysis()
+    t = dryrun.roofline_terms(plan.cost, 256)
+    live = mem.peak_bytes
+    fl = dict(seconds=plan.seconds, live_gib=live / 2 ** 30,
+              fits=live <= hardware.HBM_BYTES, flops=cost["flops"],
+              bytes=cost["bytes accessed"],
+              compute_ms=t["compute_s"] * 1e3, memory_ms=t["memory_s"] * 1e3,
+              collective_ms=t["collective_s"] * 1e3,
+              dominant=max(("compute_s", "memory_s", "collective_s"),
+                           key=lambda k: t[k]),
+              kernel_launches=plan.kernel_launches)
+    nums["lower_fleet"] = fl
+    print(f"planner, lower_fleet at cell A on 16x16 (greedy, "
+          f"{PLAN_FLEET_WINDOWS} windows, 16 replicas, rank 0's: 1): ran in "
+          f"{fl['seconds']:.2f}s, live {fl['live_gib']:.3f} GiB/dev, fits "
+          f"{fl['fits']}, torch ops' flops {fl['flops']:.4g} and bytes "
+          f"{fl['bytes']:.4g} (compute {fl['compute_ms']:.3f} ms, memory "
+          f"{fl['memory_ms']:.3f} ms, collective {fl['collective_ms']:.3f} "
+          f"ms, dominant {fl['dominant']}); kernels by launches "
+          f"{fl['kernel_launches']}; replica 0 bitwise run_fleet's [{smi}]")
+    nums["phase_s"] = time.time() - t_phase
+    print(f"phase 14: {nums['phase_s']:.1f}s [{smi}]")
+    return {"launches": launches, "numbers": nums}
 
 
 def full_cell_windows(cfg, n_tasks: int, seed: int):
@@ -2662,6 +2829,22 @@ def main(argv=None) -> int:
                                        key=lambda kv: -kv[1][0]):
         print(f"  {dev_us / 1e3:10.3f} ms  x{count:<6d} "
               f"{dev_us / all_us:.3f}  {cat}")
+    # what phase 14's plan of this step is held to: one more step's flops
+    # (FlopCounterMode; G by its registered formula) and its peak memory,
+    # and the traced step's device time
+    from torch.utils.flop_counter import FlopCounterMode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with FlopCounterMode(display=False) as fcm:
+        train_step(2 + TRAIN_TIMED)
+    torch.cuda.synchronize()
+    phase8.update(flops=fcm.get_total_flops(),
+                  step_peak_bytes=torch.cuda.max_memory_allocated(dev),
+                  step_device_ms=all_us / 1e3)
+    print(f"train step counted: {phase8['flops']:.6e} flops "
+          f"(FlopCounterMode), peak {phase8['step_peak_bytes'] / 2 ** 30:.3f}"
+          f" GiB, device time {phase8['step_device_ms']:.3f} ms (the traced "
+          f"step) [{smi}]")
     del tparams, topt, step_fn, b0
     gc.collect()
     torch.cuda.empty_cache()
@@ -3102,6 +3285,9 @@ def main(argv=None) -> int:
     # earlier phases' tensors released first (qwen2-moe's f32 parameters
     # alone are 57 GB); the phase prints what is still held
     del windows, pw
+    # phase 14's production plans run on the host meanwhile
+    plan_dir = tempfile.TemporaryDirectory()
+    plan_procs = start_production_plans(plan_dir.name)
     families = families_phase(
         torch, dev, smi, reset_counts, counters, results, args.seed)
     fam_launches = families["launches"]
@@ -3116,7 +3302,21 @@ def main(argv=None) -> int:
                                tcfg, phase8)
     launches_mesh_train = mesh_lm["train"].pop("launches")
 
-    # ---- 14. the kernel table ------------------------------------------
+    # ---- 14. the dry-run planners ----------------------------------------
+    try:
+        planner = planner_phase(torch, dev, smi, reset_counts, counters,
+                                tcfg, phase8, fcfg, fleet_ws, plan_procs,
+                                plan_dir.name)
+    finally:
+        for _, _, log, proc in plan_procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        plan_dir.cleanup()
+    launches_plan = planner["launches"]
+
+    # ---- 15. the kernel table ------------------------------------------
     meta = {
         "constraint_match": ("src/repro/kernels/constraint_match/kernel.py:76",),
         "placement_commit": ("src/repro/kernels/placement_commit/kernel.py:121",),
@@ -3140,7 +3340,8 @@ def main(argv=None) -> int:
                          + launches_run_fleet[name]
                          + sum(v[name] for v in fam_launches.values())
                          + launches_sharded[name] + launches_full[name]
-                         + launches_mesh_train[name]),
+                         + launches_mesh_train[name]
+                         + launches_plan[name]),
             "launches_by_path": {"simulate": launches[name],
                                  "fleet": launches_fleet[name],
                                  **{f"simulate_{k}": v[name]
@@ -3154,7 +3355,8 @@ def main(argv=None) -> int:
                                     for k, v in fam_launches.items()},
                                  "fleet_sharded": launches_sharded[name],
                                  "full_cell": launches_full[name],
-                                 "mesh_train": launches_mesh_train[name]},
+                                 "mesh_train": launches_mesh_train[name],
+                                 "planner_fleet": launches_plan[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -3174,6 +3376,7 @@ def main(argv=None) -> int:
     print("sharded fleet and full cell: " + json.dumps(sharded))
     print("LM on a mesh: " + json.dumps(
         {"serve": families["numbers"]["mesh_serve"], **mesh_lm}))
+    print("planner: " + json.dumps(planner["numbers"]))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -151,6 +151,18 @@ class ModelConfig:
     def has_attention(self) -> bool:
         return any(m == "attn" for m, _ in self.layer_pattern())
 
+    def has_mamba(self) -> bool:
+        return any(m == "mamba" for m, _ in self.layer_pattern())
+
+    def is_subquadratic(self) -> bool:
+        """True if the arch can run the 512K-token long-context decode shape."""
+        if not self.has_attention():
+            return True
+        # hybrids with sparse attention layers qualify (jamba: 1 attn per 8)
+        pat = self.layer_pattern()
+        frac_attn = sum(1 for m, _ in pat if m == "attn") / len(pat)
+        return frac_attn <= 0.25
+
     def param_count(self) -> int:
         """Analytic parameter count (used for 6ND model-FLOPs)."""
         d, v = self.d_model, self.padded_vocab

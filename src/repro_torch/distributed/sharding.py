@@ -249,12 +249,35 @@ def contiguous_stride(shape) -> Tuple[int, ...]:
     return tuple(stride)
 
 
+class _Constrain(torch.autograd.Function):
+    """A DTensor laid out by a sharding, whose gradient is laid out by the
+    same sharding: the reference's ``with_sharding_constraint``, whose
+    transpose constrains the cotangent alike. (DTensor's own redistribute
+    hands the gradient back in the input's layout, so a backward would
+    follow whatever layout the forward's input had.)"""
+
+    @staticmethod
+    def forward(ctx, x, sharding):
+        ctx.sharding = sharding
+        out = place(x, sharding)
+        return out.view_as(out) if out is x else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return place(grad, ctx.sharding), None
+
+
 def logical_constraint(x, *axes: Optional[str]):
-    """The layout of ``x`` by logical axes; no-op without an active mesh."""
+    """The layout of ``x`` by logical axes (and, for a DTensor that needs
+    a gradient, the layout of its gradient); no-op without an active
+    mesh."""
     mesh, rules = _current()
     if mesh is None or rules is None:
         return x
-    return place(x, NamedSharding(mesh, resolve_spec(axes, rules)))
+    sh = NamedSharding(mesh, resolve_spec(axes, rules))
+    if is_dtensor(x) and x.requires_grad and torch.is_grad_enabled():
+        return _Constrain.apply(x, sh)
+    return place(x, sh)
 
 
 def make_sharding(axes: Sequence[Optional[str]], mesh,

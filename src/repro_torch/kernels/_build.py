@@ -177,3 +177,12 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def register_flops(op, formula) -> None:
+    """``formula(*shapes and scalars of op's arguments)`` as ``op``'s count
+    in ``torch.utils.flop_counter`` (so ``FlopCounterMode`` and the dry-run
+    planner count a kernel's custom op); once per process."""
+    from torch.utils.flop_counter import flop_registry, register_flop_formula
+    if op not in flop_registry:
+        register_flop_formula(op)(formula)

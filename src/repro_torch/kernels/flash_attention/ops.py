@@ -14,7 +14,13 @@ and back is not needed. It has two bodies, and dtype and D alone pick one:
   with any other D: the SIMT body (f32 scalar arithmetic).
 
 Neither body is the plain version; ``flash_attention_cuda.launches`` counts
-every launch and ``launches_tc`` those of the tensor-core body."""
+every launch and ``launches_tc`` those of the tensor-core body.
+
+The launch is the custom op ``repro_torch::flash_attention``, with a fake
+(shape) function and a flop formula: a fake CUDA tensor (the dry-run
+planner's) gets an output of the right shape and is counted by the
+formula, and never reaches a data pointer, the TMA checks or the build; a
+real one launches the kernel as before."""
 from __future__ import annotations
 
 import torch
@@ -76,6 +82,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {D} not in "
                          f"[1, {MAX_HEAD_DIM}]")
+    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal),
+                                                 float(scale))
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            scale: float) -> torch.Tensor:
+    """One launch of the body that dtype and D pick, on checked tensors."""
+    B, S, H, D = q.shape
     tc = uses_tensor_cores(q.dtype, D)
     if tc:
         for name, t in (("q", q), ("k", k), ("v", v)):
@@ -86,14 +101,30 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     if tc:
         _build.launch("flash_attention_tc_launch", q, k, v, out, *strides,
-                      B, S, H, D, int(bool(causal)), float(scale))
+                      B, S, H, D, int(causal), scale)
         flash_attention_cuda.launches_tc += 1
     else:
         _build.launch("flash_attention_launch", q, k, v, out, *strides,
-                      B, S, H, D, int(bool(causal)), DTYPE_CODES[q.dtype],
-                      float(scale))
+                      B, S, H, D, int(causal), DTYPE_CODES[q.dtype], scale)
     flash_attention_cuda.launches += 1
     return out
+
+
+@_launch.register_fake
+def _(q, k, v, causal, scale):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+def attention_flops(q_shape, k_shape, v_shape, causal: bool, *args,
+                    **kwargs) -> int:
+    """The kernel's work: two products of D multiply-adds for each (query,
+    key) pair it scores, S(S+1)/2 pairs a head causal, S^2 full."""
+    B, S, H, D = q_shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 4 * B * H * D * pairs
+
+
+_build.register_flops(torch.ops.repro_torch.flash_attention, attention_flops)
 
 
 flash_attention_cuda.launches = 0

@@ -5,7 +5,13 @@ launch ``csrc/fused_ce.cu`` (its tensor-core body for bf16 with d % 8 ==
 :class:`FusedCEMean` is the training loss built on it: the forward is the
 kernel (the plain version on the CPU), the backward plain PyTorch chunked
 over the vocab, since the reference has no backward kernel either (its
-gradient is autodiff of the chunked scan)."""
+gradient is autodiff of the chunked scan).
+
+The launch is the custom op ``repro_torch::fused_ce``, with a fake (shape)
+function and a flop formula: a fake CUDA tensor (the dry-run planner's)
+gets outputs of the right shapes and is counted by the formula, and never
+reaches a data pointer or the build; a real one launches the kernel as
+before."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -58,6 +64,15 @@ def fused_ce_cuda(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     _build.check(labels, "labels", torch.int32, (T,))
     if w.device != x.device or labels.device != x.device:
         raise ValueError("fused_ce: x, w and labels must share a device")
+    return torch.ops.repro_torch.fused_ce(x, w, labels, int(vocab_size))
+
+
+@torch.library.custom_op("repro_torch::fused_ce", mutates_args=())
+def _launch(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+            vocab_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the body the operands pick, on checked tensors."""
+    T, d = x.shape
+    Vp = w.shape[0]
     nll = torch.empty(T, dtype=torch.float32, device=x.device)
     lse = torch.empty(T, dtype=torch.float32, device=x.device)
     if T == 0:
@@ -73,14 +88,29 @@ def fused_ce_cuda(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                           device=x.device)
     if tc:
         _build.launch("fused_ce_tc_launch", x, w, labels, nll, lse, scratch,
-                      T, d, Vp, int(vocab_size), n_split, per)
+                      T, d, Vp, vocab_size, n_split, per)
         fused_ce_cuda.launches_tc += 1
     else:
         _build.launch("fused_ce_launch", x, w, labels, nll, lse, scratch, T,
-                      d, Vp, int(vocab_size), n_split, per,
-                      DTYPE_CODES[x.dtype])
+                      d, Vp, vocab_size, n_split, per, DTYPE_CODES[x.dtype])
     fused_ce_cuda.launches += 1
     return nll, lse
+
+
+@_launch.register_fake
+def _(x, w, labels, vocab_size):
+    T = x.shape[0]
+    return (torch.empty(T, dtype=torch.float32, device=x.device),
+            torch.empty(T, dtype=torch.float32, device=x.device))
+
+
+def ce_flops(x_shape, w_shape, *args, **kwargs) -> int:
+    """The kernel's work: the (T, d) x (d, Vp) product of the logits."""
+    T, d = x_shape
+    return 2 * T * d * w_shape[0]
+
+
+_build.register_flops(torch.ops.repro_torch.fused_ce, ce_flops)
 
 
 fused_ce_cuda.launches = 0

@@ -383,6 +383,63 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return logits_from_hidden(params, cfg, x), aux
 
 
+# --- cost-probe entry points (dry-run): one pattern repeat ------------------
+
+def single_repeat(params_r, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward through ONE pattern repeat. params_r: per-position dicts with
+    the repeat dim already sliced away. Returns (x, MoE aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for pos, (mixer, mlp) in enumerate(cfg.layer_pattern()):
+        x, aux = _apply_block(cfg, params_r[pos], mixer, mlp, x, positions,
+                              aux)
+    return x, aux
+
+
+def single_repeat_decode(params_r, cfg: ModelConfig, x: torch.Tensor,
+                         cache_r, cache_len):
+    """Decode through ONE pattern repeat. cache_r: per-position cache dicts
+    with the repeat dim sliced away. Returns (x, the new per-position
+    caches): an attention position's is its dict, written in place as
+    :func:`decode_step` writes it, a Mamba position's the new state."""
+    new_cache_r = []
+    for pos, (mixer, mlp) in enumerate(cfg.layer_pattern()):
+        p = params_r[pos]
+        h = rms_norm(x, p["norm_mixer"]["w"], cfg.norm_eps)
+        if mixer == "attn":
+            out, new_c = attention.decode(p["mixer"], cfg, h, cache_r[pos],
+                                          cache_len)
+        else:
+            out, new_c = mamba.decode(p["mixer"], cfg, h, cache_r[pos])
+        new_cache_r.append(new_c)
+        x, _ = _mlp_residual(cfg, p, mlp, x + out, 0.0)
+    return x, tuple(new_cache_r)
+
+
+def head_and_embed_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
+                        labels: torch.Tensor,
+                        hidden: torch.Tensor) -> torch.Tensor:
+    """Everything OUTSIDE the layer stack: embedding + final norm + logits +
+    CE. ``hidden`` stands in for the stack output (residual stream). Honors
+    cfg.chunked_ce, so the dry-run's head probe measures the configured
+    path (kernel G on a CUDA tensor)."""
+    x = embed_tokens(params, cfg, tokens)
+    x = x + hidden.to(x.dtype)          # keep embed live in the grad graph
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.chunked_ce:
+        B, S, d = x.shape
+        lbl = labels if labels.dim() == 3 else labels[..., None]
+        ce = 0.0
+        for k in range(cfg.n_codebooks):
+            w = _head_weight(params, cfg, k).to(x.dtype)
+            ce = ce + cross_entropy_chunked(
+                x.reshape(B * S, d), w, lbl[..., k].reshape(-1),
+                cfg.vocab_size, cfg.ce_chunks)
+        return ce / cfg.n_codebooks
+    return cross_entropy(logits_from_hidden(params, cfg, x), labels)
+
+
 # ---------------------------------------------------------------------------
 # Loss
 # ---------------------------------------------------------------------------
@@ -404,9 +461,26 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         # a vocab-split operand masks with the wrong rank)
         logits = logical_constraint(logits, "batch", "seq", None, None)
     lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, safe[..., None])[..., 0]
+    picked = _pick(logits, safe[..., None])[..., 0]
     nll = torch.where(valid, lse - picked, torch.zeros_like(lse))
     return nll.sum() / valid.sum().clamp_min(1)
+
+
+def _pick(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``logits.gather(-1, idx)``. A DTensor (whole vocab rows, rows laid
+    out by the rules) gathers in ``local_map`` on each rank's rows:
+    DTensor's own gather backward would scatter into zeros of the global
+    shape on every rank (the whole batch's logits)."""
+    if not sharding.is_dtensor(logits):
+        return logits.gather(-1, idx)
+    mesh, rules = sharding._current()
+    sh = sharding.make_sharding(("batch", "seq", None, None), mesh, rules)
+    idx = logical_constraint(idx, "batch", "seq", None, None)
+    local_map, kw = sharding.import_shard_map()
+    pls = sh.placements
+    return local_map(lambda lg, i: lg.gather(-1, i), out_placements=list(pls),
+                     in_placements=(pls, pls), device_mesh=sh.device_mesh,
+                     **kw)(logits, idx)
 
 
 def cross_entropy_chunked_plain(x: torch.Tensor, w_vd: torch.Tensor,

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.distributed import compression
+from repro_torch.distributed.sharding import logical_constraint, split_dim
 from repro_torch.models import model
 from repro_torch.models.layers import torch_dtype
 from repro_torch.train import optim
@@ -37,9 +38,19 @@ from repro_torch.train.tree import leaves, map_tree
 
 def _microbatch(batch: Dict[str, torch.Tensor], m: int
                 ) -> Dict[str, torch.Tensor]:
-    """(B, ...) -> (m, B/m, ...) for every leaf."""
-    return {k: x.reshape((m, x.shape[0] // m) + tuple(x.shape[1:]))
+    """(B, ...) -> (m, B/m, ...) for every leaf. A batch dim split over
+    more ranks than divide m is gathered first (``sharding.split_dim``);
+    :func:`_rows` splits each microbatch again."""
+    return {k: split_dim(x, 0, (m, x.shape[0] // m) + tuple(x.shape[1:]))
             for k, x in batch.items()}
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """A microbatch leaf with its rows laid out as the batch's (split over
+    the data axes on a mesh; a gathered batch is split again locally, so
+    that nothing downstream, such as the loss's label gather, runs on the
+    whole batch)."""
+    return logical_constraint(x, "batch", *([None] * (x.dim() - 1)))
 
 
 def _unbind(t: torch.Tensor) -> List[torch.Tensor]:
@@ -139,7 +150,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
             loss_sum = 0.0
             for i in range(m):
                 loss_i, _ = loss_and_backward(
-                    tree, {k: v[i] for k, v in mbs.items()})
+                    tree, {k: _rows(v[i]) for k, v in mbs.items()})
                 loss_sum = loss_sum + loss_i
             for g in leaves(grads):
                 g.div_(m)

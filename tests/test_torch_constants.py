@@ -9,7 +9,11 @@ stack's meta fields, the snapshot's meta keys, OpenB's vocabularies and the
 full-cell config; the training side's
 TrainConfig and ShapeConfig (fields and defaults), SHAPES, and each
 architecture's parameter counts and ``describe`` line; and the
-CloudSim-like baseline (policies, workload, a run's outcome)."""
+CloudSim-like baseline (policies, workload, a run's outcome); the model's
+runtime flags (``scan_unroll``, ``inner_unroll``), the dry-run's dtype
+sizes and collective wire factors, with no TPU v5e figure left in the
+port's hardware model; and ``has_mamba``/``is_subquadratic`` of every
+architecture."""
 import dataclasses
 
 import numpy as np
@@ -24,6 +28,8 @@ import repro.core.stats as ref_stats
 import repro.core.tracegen as ref_tracegen
 import repro.kernels.placement_commit.kernel as ref_pc_kernel
 import repro.kernels.window_stats.ref as ref_ws
+import repro.launch.hardware as ref_hardware
+import repro.models.runtime_flags as ref_flags
 import repro.core.precompile as ref_precompile
 import repro.parsers.alibaba_openb as ref_openb
 import repro.resilience.faults as ref_faults
@@ -45,6 +51,8 @@ import repro_torch.core.stats as stats
 import repro_torch.core.tracegen as tracegen
 import repro_torch.kernels.placement_commit as pc
 import repro_torch.kernels.window_stats.ref as ws
+import repro_torch.launch.hardware as hardware
+import repro_torch.models.runtime_flags as flags
 import repro_torch.core.precompile as precompile
 import repro_torch.parsers.alibaba_openb as openb
 import repro_torch.resilience.faults as faults
@@ -319,3 +327,58 @@ def test_cloudsim_baseline_equal(policy):
     assert got == want and got["placed"] > 0
     with pytest.raises(KeyError, match="unknown placement policy"):
         cs.CloudSimLike(4, policy="no_such_policy")
+
+
+# --- the dry-run's runtime flags and hardware model ---------------------------
+
+@pytest.mark.parametrize("kinds,kind,length", [
+    ({}, "ssd", 8), ({"ssd": 4}, "ssd", 8), ({"ssd": 4}, "ssd", 2),
+    ({"ssd": 4}, "attn_chunk", 32), ({"ssd": 0}, "ssd", 8),
+    ({"attn_chunk": 16, "ssd": 2}, "attn_chunk", 4)])
+def test_runtime_flags_behave_as_the_reference(kinds, kind, length):
+    with ref_flags.scan_unroll(**kinds), flags.scan_unroll(**kinds):
+        assert flags.UNROLL == ref_flags.UNROLL == kinds
+        assert flags.inner_unroll(kind, length) == \
+            ref_flags.inner_unroll(kind, length)
+        with ref_flags.scan_unroll(ssd=3), flags.scan_unroll(ssd=3):
+            assert flags.UNROLL == ref_flags.UNROLL
+            assert flags.inner_unroll("ssd", 8) == 3
+    assert flags.UNROLL == ref_flags.UNROLL == {}
+    with pytest.raises(RuntimeError):
+        with flags.scan_unroll(ssd=2):
+            raise RuntimeError("unwinds")
+    assert flags.UNROLL == {}
+
+
+def test_hardware_dtype_bytes_and_wire_factors_equal_the_reference():
+    named = {k: v for k, v in hardware.DTYPE_BYTES.items()
+             if isinstance(k, str)}
+    assert named == ref_hardware.DTYPE_BYTES
+    assert hardware.COLLECTIVE_WIRE_FACTOR == \
+        ref_hardware.COLLECTIVE_WIRE_FACTOR
+    for dt, n in hardware.DTYPE_BYTES.items():
+        if isinstance(dt, torch.dtype):
+            assert torch.empty((), dtype=dt).element_size() == n, dt
+
+
+def test_no_tpu_v5e_figure_in_the_port_hardware_model():
+    # (the v5e's 50e9 ICI link equals one 400 Gb/s InfiniBand port: not
+    # a v5e figure here)
+    v5e = {197e12, 819e9, 16 * 1024 ** 3}
+    figures = {v for k, v in vars(hardware).items()
+               if k.isupper() and isinstance(v, (int, float))}
+    assert not figures & v5e, figures & v5e
+    text = open(hardware.__file__).read()
+    for literal in ("197e12", "819e9", "16 * 1024**3", "v5e", "ICI_BW"):
+        assert literal not in text, literal
+    assert hardware.PEAK_FLOPS_BF16 == 989e12
+    assert hardware.PEAK_FLOPS_F32 == 67e12
+    assert hardware.HBM_BW == 3.35e12
+    assert hardware.HBM_BYTES == 80 * 10 ** 9
+
+
+@pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
+def test_mamba_and_subquadratic_equal_the_reference(arch):
+    mine, ref = configs.get_config(arch), ref_configs.get_config(arch)
+    assert mine.has_mamba() == ref.has_mamba()
+    assert mine.is_subquadratic() == ref.is_subquadratic()
