@@ -204,9 +204,22 @@ Phases, each printing its own lines:
      GiB/dev, fits, the three terms, the dominant one; ``lower_fleet`` at
      cell A (greedy, 8 of phase 5's windows) on 16x16, rank 0's replica
      bitwise ``run_fleet``'s replica 0, its kernels' launches counted;
-  15. a ``kernels:`` status line, phase 6's, phase 10's, phase 11's,
-     phase 12's, phase 13's and phase 14's numbers as JSON lines, and the
-     JSON kernel table (seven kernels, launches by path; F's body and
+  15. the examples: each of the six scripts of ``examples/torch`` at its
+     own defaults (``train_lm.py``'s ~100M model for 300 steps, with a
+     fresh checkpoint directory; ``scenario_sweep.py`` also with ``--mesh
+     1``, a world of 1 over NCCL), each in its own process (``python3
+     chip_smoke.py --example NAME [ARGS]``), its launch counts set to 0
+     just before its ``main`` and read just after; the scripts' own
+     assertions hold (invariants, diverging lanes, a bitwise trajectory
+     after recovery, a loss that goes down), every kernel of each path is
+     launched (A, B, C, E for the simulations; A, C, D, E for the fleet; A,
+     B, C, E through the mesh), F and G never; each script's wall
+     seconds, headline numbers and launches beside the card's name and
+     power limit;
+  16. a ``kernels:`` status line (each kernel's launches, and those of
+     phase 15 apart), phase 6's, phase 10's, phase 11's, phase 12's, phase
+     13's, phase 14's and phase 15's numbers as JSON lines, and the JSON
+     kernel table (seven kernels, launches by path; F's body and
      tensor-core launches, F at qwen2-moe's and G at mamba2's shapes, B and
      D's cluster size; E's surrogate shape).
 
@@ -285,6 +298,20 @@ FAMILY_HYBRID = "jamba-1.5-large-398b"  # reduced: 398 B parameters at full
 SSM_CHECK_LEN = 640                   # the f32 check's full forward: 5 chunks
 MESH_TRAIN_STEPS = 2                  # phase 13's training steps on the mesh
 TRACE_STEPS = 4                       # phase 13's traced decode steps
+# phase 15: each example of examples/torch at its own defaults, in its own
+# process; the kernels its path must launch
+EXAMPLE_RUNS = (
+    ("quickstart", (), MAIN_PATH),
+    ("simulate_cluster", (), MAIN_PATH),
+    ("scenario_sweep", (), FLEET_PATH),
+    ("scenario_sweep", ("--mesh", "1"),
+     ("constraint_match", "placement_commit", "window_stats",
+      "segment_usage")),
+    ("fault_tolerant_train", (), MAIN_PATH[:3]),   # 60 windows: no resync
+    ("serve_lm", (), ()),                          # xla attention: no F
+    ("train_lm", (), ()),                          # chunked_ce off: no G
+)
+EXAMPLE_TIMEOUT_S = 600
 
 
 PLUGIN = "smoke_pack_left"     # the fleet's external-family lane
@@ -1670,7 +1697,142 @@ def sharded_and_full_cell_phase(torch, dev, smi, reset_counts, counters,
     return launches, lk, nums
 
 
+def kernel_counters() -> dict:
+    """Each kernel's wrapper by name; its ``launches`` attribute counts
+    the kernel's launches."""
+    from repro_torch.kernels.constraint_match import ops as cm_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fused_ce import ops as ce_ops
+    from repro_torch.kernels.placement_commit import ops as pc_ops
+    from repro_torch.kernels.segment_usage import ops as su_ops
+    from repro_torch.kernels.window_stats import ops as ws_ops
+    return {"constraint_match": cm_ops.constraint_match_cuda,
+            "placement_commit": pc_ops.placement_commit_cuda,
+            "window_stats": ws_ops.window_stats_cuda,
+            "sched_commit": pc_ops.sched_commit_cuda,
+            "segment_usage": su_ops.segment_usage_cuda,
+            "flash_attention": fa_ops.flash_attention_cuda,
+            "fused_ce": ce_ops.fused_ce_cuda}
+
+
+def example_numbers(name: str, res: dict) -> dict:
+    """The headline numbers of one example's ``main`` result."""
+    if name == "quickstart":
+        return {k: res[k] for k in ("windows", "wall_s", "windows_per_s",
+                                    "placed", "completed", "evictions")}
+    if name == "simulate_cluster":
+        return {"by_scheduler": {
+            s: {k: r[k] for k in ("wall", "windows_per_s", "speed",
+                                  "placed", "evicted")}
+            for s, r in res["results"].items()},
+            "snapshot": res["snapshot"]}
+    if name == "scenario_sweep":
+        return {"windows": res["windows"], "lanes": res["lanes"],
+                "wall_s": res["wall_s"],
+                "windows_per_s": res["windows"] / res["wall_s"],
+                "lane_windows_per_s": res["lane_windows_per_s"],
+                "placed_span": [min(res["placed"]), max(res["placed"])]}
+    if name == "fault_tolerant_train":
+        return {"removal_windows": res["removal_windows"],
+                "crashes": res["crashes"],
+                "recoveries": res["faulted"]["recoveries"],
+                "identical": res["identical"],
+                "sim_windows_per_s": res["sim_windows"] / res["sim_wall_s"],
+                "clean_steps_per_s": res["steps_per_s"],
+                "final_loss": res["clean"]["losses"][-1]}
+    if name == "serve_lm":
+        return {arch: {"tok_per_s": r["tok_per_s"], "wall_s": r["wall_s"],
+                       "shape": list(r["shape"]),
+                       "first_ids": r["first_ids"]}
+                for arch, r in res.items()}
+    if name == "train_lm":
+        return {k: res[k] for k in ("params", "steps", "wall_s",
+                                    "steps_per_s", "final_loss", "ln_v",
+                                    "copy_floor")} | {
+            "first_loss": res["losses"][0]}
+    raise ValueError(f"unknown example {name!r}")
+
+
+def run_example(name: str, args) -> dict:
+    """Run ``examples/torch/<name>.py``'s ``main(args)`` in this process,
+    its kernels' launch counts set to 0 just before and read just after;
+    the script's own assertions raise."""
+    import runpy
+    counters = kernel_counters()
+    mod = runpy.run_path(str(ROOT / "examples" / "torch" / f"{name}.py"))
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    res = mod["main"](list(args))
+    wall = time.time() - t0
+    return {"name": name, "args": list(args), "main_s": wall,
+            "launches": {k: fn.launches for k, fn in counters.items()},
+            "numbers": example_numbers(name, res)}
+
+
+def example_child(name: str, args) -> int:
+    """``chip_smoke.py --example NAME [ARGS]``: one example on the card,
+    its result printed as one JSON line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print("example result: " + json.dumps(run_example(name, args)))
+    return 0
+
+
+def examples_phase(torch, smi) -> dict:
+    """Phase 15: the six examples of ``examples/torch`` on the card, each
+    in its own process (the training runner installs a signal handler;
+    each process frees its memory when it exits) at its own defaults,
+    ``scenario_sweep`` also with ``--mesh 1`` and ``train_lm`` with a
+    fresh checkpoint directory. A script that fails, or a kernel of its
+    path not launched, fails the phase."""
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"examples: this process holds "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB of the card")
+    runs = []
+    launches = dict.fromkeys(kernel_counters(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, args, path in EXAMPLE_RUNS:
+            if name == "train_lm":
+                args = (*args, "--ckpt-dir", os.path.join(tmp, "train_lm"))
+            label = " ".join((name, *args))
+            t0 = time.time()
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--example",
+                 name, *args], cwd=ROOT, capture_output=True, text=True,
+                timeout=EXAMPLE_TIMEOUT_S)
+            wall = time.time() - t0
+            lines = [ln for ln in proc.stdout.splitlines()
+                     if ln.startswith("example result: ")]
+            if proc.returncode != 0 or not lines:
+                print(proc.stdout[-4000:])
+                print(proc.stderr[-4000:], file=sys.stderr)
+                raise RuntimeError(f"example {label} failed "
+                                   f"(exit {proc.returncode})")
+            r = json.loads(lines[-1][len("example result: "):])
+            r["process_s"] = wall
+            missing = [k for k in path if r["launches"][k] == 0]
+            assert not missing, f"{label}: {missing} never launched"
+            for k, v in r["launches"].items():
+                launches[k] += v
+            runs.append(r)
+            got = {k: v for k, v in r["launches"].items() if v}
+            print(f"  {label}: {wall:.1f}s (main {r['main_s']:.1f}s); "
+                  f"launches {got}; {json.dumps(r['numbers'])} [{smi}]")
+    assert launches["flash_attention"] == launches["fused_ce"] == 0, launches
+    phase_s = time.time() - t_phase
+    print(f"phase 15: {phase_s:.1f}s [{smi}]")
+    return {"runs": runs, "launches": launches, "phase_s": phase_s}
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--example"]:
+        return example_child(argv[1], argv[2:])
     ap = argparse.ArgumentParser()
     ap.add_argument("--jobs", type=int, default=16_000)
     ap.add_argument("--windows", type=int, default=64)
@@ -1763,13 +1925,7 @@ def main(argv=None) -> int:
     def cuda(x):
         return torch.as_tensor(x).to(dev)
 
-    counters = {"constraint_match": cm_ops.constraint_match_cuda,
-                "placement_commit": pc_ops.placement_commit_cuda,
-                "window_stats": ws_ops.window_stats_cuda,
-                "sched_commit": pc_ops.sched_commit_cuda,
-                "segment_usage": su_ops.segment_usage_cuda,
-                "flash_attention": fa_ops.flash_attention_cuda,
-                "fused_ce": ce_ops.fused_ce_cuda}
+    counters = kernel_counters()
     results = {name: {} for name in counters}
     stoch_split = {}       # phase 6: windows/s and a window's device split
 
@@ -3316,7 +3472,11 @@ def main(argv=None) -> int:
         plan_dir.cleanup()
     launches_plan = planner["launches"]
 
-    # ---- 15. the kernel table ------------------------------------------
+    # ---- 15. the examples, each in its own process -----------------------
+    examples = examples_phase(torch, smi)
+    launches_examples = examples["launches"]
+
+    # ---- 16. the kernel table ------------------------------------------
     meta = {
         "constraint_match": ("src/repro/kernels/constraint_match/kernel.py:76",),
         "placement_commit": ("src/repro/kernels/placement_commit/kernel.py:121",),
@@ -3341,7 +3501,8 @@ def main(argv=None) -> int:
                          + sum(v[name] for v in fam_launches.values())
                          + launches_sharded[name] + launches_full[name]
                          + launches_mesh_train[name]
-                         + launches_plan[name]),
+                         + launches_plan[name]
+                         + launches_examples[name]),
             "launches_by_path": {"simulate": launches[name],
                                  "fleet": launches_fleet[name],
                                  **{f"simulate_{k}": v[name]
@@ -3356,7 +3517,8 @@ def main(argv=None) -> int:
                                  "fleet_sharded": launches_sharded[name],
                                  "full_cell": launches_full[name],
                                  "mesh_train": launches_mesh_train[name],
-                                 "planner_fleet": launches_plan[name]},
+                                 "planner_fleet": launches_plan[name],
+                                 "examples": launches_examples[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -3368,7 +3530,9 @@ def main(argv=None) -> int:
                if name == "fused_ce" else {}),
             **({"body": fa_ops.TC_BODY, "launches_tc": f_tc}
                if name == "flash_attention" else {})})
-    print("kernels: " + " ".join(f"{t['name']}=ok(cuda)" for t in table))
+    print("kernels: " + " ".join(
+        f"{t['name']}=ok(cuda; launches {t['launches']}, examples "
+        f"{t['launches_by_path']['examples']})" for t in table))
     print("stochastic schedulers at cell A: " + json.dumps(
         {"key_draw_ms": draw_ms, "by_scheduler": stoch_split}))
     print("service at cell A: " + json.dumps({**service, "card": smi}))
@@ -3377,6 +3541,11 @@ def main(argv=None) -> int:
     print("LM on a mesh: " + json.dumps(
         {"serve": families["numbers"]["mesh_serve"], **mesh_lm}))
     print("planner: " + json.dumps(planner["numbers"]))
+    print("examples: " + json.dumps(
+        {"phase_s": examples["phase_s"], "card": smi,
+         "runs": [{k: r[k] for k in ("name", "args", "process_s", "main_s",
+                                     "launches", "numbers")}
+                  for r in examples["runs"]]}))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

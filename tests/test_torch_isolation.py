@@ -1,6 +1,9 @@
-"""The port stands alone: no module of ``src/repro_torch`` nor
-``chip_smoke.py`` imports ``jax`` or anything of ``repro`` (the reference
-package); importing the port works with both blocked."""
+"""The port stands alone: no module of ``src/repro_torch``, no example of
+``examples/torch`` nor ``chip_smoke.py`` imports ``jax`` or anything of
+``repro`` (the reference package); importing the port, and each example
+script, works with both blocked; each example needs the card unless told
+``--device cpu``."""
+import importlib.util
 import os
 import re
 import subprocess
@@ -8,6 +11,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(
@@ -15,8 +19,11 @@ FORBIDDEN = re.compile(
     r"|from\s+repro(\.|\s)(?!_))")
 
 
+EXAMPLES = sorted((ROOT / "examples" / "torch").glob("*.py"))
+
+
 def _sources():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + EXAMPLES + [
         ROOT / "chip_smoke.py"]
 
 
@@ -68,3 +75,39 @@ def test_port_imports_with_jax_and_reference_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_the_six_examples_are_there():
+    assert [p.name for p in EXAMPLES] == sorted(
+        p.name for p in (ROOT / "examples").glob("*.py"))
+    assert len(EXAMPLES) == 6
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.stem)
+def test_example_imports_with_jax_and_reference_blocked(path):
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            f"mod = runpy.run_path({str(path)!r})\n"
+            "assert callable(mod['main'])\n"
+            "assert 'jax' not in [m.split('.')[0] for m, v in "
+            "sys.modules.items() if v is not None]\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.stem)
+def test_example_needs_the_card_unless_told_cpu(path, monkeypatch):
+    """Without ``--device`` an example asks for the card, and raises where
+    there is none instead of running on the CPU."""
+    spec = importlib.util.spec_from_file_location(f"card_ex_{path.stem}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])
