@@ -34,6 +34,7 @@ from repro_torch.core.snapshot import load_snapshot
 from repro_torch.core.state import SimState, drop, init_state, lift
 from repro_torch.device import resolve_device
 from repro_torch.sched import get_scheduler
+from repro_torch.trace import span
 
 
 class _StagingRing:
@@ -134,13 +135,16 @@ class WindowPrefetcher:
         ring: Optional[_StagingRing] = None
 
         def put_stacked(stacked: EventWindow):
-            self._put(EventWindow(*[torch.from_numpy(np.ascontiguousarray(f))
-                                    for f in stacked]))
+            with span("agocs.prefetch.stage_pageable"):
+                self._put(EventWindow(*[
+                    torch.from_numpy(np.ascontiguousarray(f))
+                    for f in stacked]))
 
         def flush():
             if len(batch) == self.batch:
-                host, slot = ring.stage(batch)
-                self._put(host, ring, slot)
+                with span("agocs.prefetch.stage"):
+                    host, slot = ring.stage(batch)
+                    self._put(host, ring, slot)
             else:                         # short tail batch
                 put_stacked(stack_windows(batch))
             batch.clear()
@@ -168,19 +172,21 @@ class WindowPrefetcher:
 
     def __iter__(self):
         while True:
-            item = self._q.get()
+            with span("agocs.driver.next_batch"):
+                item = self._q.get()
+                if item is not self._done:
+                    dev, copied, n = item
+                    with self._lock:
+                        self._events_out += n
+                    if copied is not None:
+                        stream = torch.cuda.current_stream(self.device)
+                        stream.wait_event(copied)
+                        for t in dev:         # allocated on the side stream
+                            t.record_stream(stream)
             if item is self._done:
                 if self._error is not None:
                     raise self._error
                 return
-            dev, copied, n = item
-            with self._lock:
-                self._events_out += n
-            if copied is not None:
-                stream = torch.cuda.current_stream(self.device)
-                stream.wait_event(copied)
-                for t in dev:                 # allocated on the side stream
-                    t.record_stream(stream)
             yield dev
 
 
@@ -282,7 +288,8 @@ class WindowedDriver:
             while self._paused.is_set():
                 time.sleep(0.01)
             W = batch.kind.shape[0]
-            stats = self._advance(batch, self.seed + self.windows_done)
+            with span("agocs.driver.advance"):
+                stats = self._advance(batch, self.seed + self.windows_done)
             k = self.cfg.stats_stride
             m, r = divmod(W, k)
             self._row_windows.extend(
@@ -294,11 +301,13 @@ class WindowedDriver:
             if done is not None:
                 self._inflight.append(done)
                 if len(self._inflight) > self.max_inflight_batches:
-                    self._inflight.popleft().synchronize()
+                    with span("agocs.driver.runahead"):
+                        self._inflight.popleft().synchronize()
             if resync_every:
                 self._since_resync += W
                 if self._since_resync >= resync_every:
-                    self.state = self._resync()
+                    with span("agocs.driver.resync"):
+                        self.state = self._resync()
                     self.resyncs_done += 1
                     self._since_resync = 0
             if on_batch is not None:

@@ -53,6 +53,7 @@ from repro_torch.scenarios.spec import ScenarioKnobs
 from repro_torch.sched import (DispatchTable, base_pass, finalize,
                                make_switchless_dispatch, propose_lanes,
                                snapshot_dispatch)
+from repro_torch.trace import span
 
 
 FLEET_AXIS = "data"   # the mesh axis the scenario lanes shard over
@@ -155,21 +156,24 @@ def make_scenario_prelude(cfg: SimConfig, has_storm: bool = True):
 
     def prelude(state: SimState, w: EventWindow, knobs: ScenarioKnobs
                 ) -> Tuple[SimState, torch.Tensor]:
-        w = perturb.perturb_window(w, knobs, cfg, window=state.window)
-        if cfg.inject_slots:
-            injected = (w.kind[:, -cfg.inject_slots:] == EventKind.ADD_TASK
-                        ).sum(-1, dtype=torch.int32)
-        else:
-            injected = torch.zeros_like(state.window)
-        state = eng.apply_node_events(state, w, cfg)
-        state = eng.apply_task_events(state, w, cfg)
-        if not cfg.incremental_accounting:
-            state = eng.recompute_accounting(state, cfg)
-        state = eng.evict_invalid(state, cfg)
-        if has_storm:
-            state = perturb.storm_evict(state, knobs, cfg)
-        if cfg.inject_slots:
-            state = perturb.expire_injected(state, knobs, cfg)
+        with span("agocs.fleet.perturb"):
+            w = perturb.perturb_window(w, knobs, cfg, window=state.window)
+            if cfg.inject_slots:
+                injected = (w.kind[:, -cfg.inject_slots:]
+                            == EventKind.ADD_TASK).sum(-1, dtype=torch.int32)
+            else:
+                injected = torch.zeros_like(state.window)
+        with span("agocs.fleet.events"):
+            state = eng.apply_node_events(state, w, cfg)
+            state = eng.apply_task_events(state, w, cfg)
+            if not cfg.incremental_accounting:
+                state = eng.recompute_accounting(state, cfg)
+            state = eng.evict_invalid(state, cfg)
+        with span("agocs.fleet.perturb"):
+            if has_storm:
+                state = perturb.storm_evict(state, knobs, cfg)
+            if cfg.inject_slots:
+                state = perturb.expire_injected(state, knobs, cfg)
         if not cfg.incremental_accounting:
             state = eng.recompute_accounting(state, cfg)
         return state, injected
@@ -187,15 +191,18 @@ def make_switch_dispatch(cfg: SimConfig, table: DispatchTable,
     flags = tuple(int(table.dynamic[s]) for s in lane_scheds)
 
     def dispatch(state: SimState, rng=None) -> SimState:
-        idx, valid, base_ok, scores = base_pass(state, cfg)
-        pref = propose_lanes(proposers, state, cfg, rng, idx, valid, base_ok,
-                             scores)
-        if len(table.names) == 1:
-            dyn = bool(table.dynamic[0])
-        else:
-            dyn = lane_const(flags, state.window.device) != 0
-        return finalize(state, cfg, idx, valid, base_ok, pref,
-                        dynamic_bestfit=dyn)
+        with span("agocs.sched.base"):
+            idx, valid, base_ok, scores = base_pass(state, cfg)
+        with span("agocs.sched.external"):
+            pref = propose_lanes(proposers, state, cfg, rng, idx, valid,
+                                 base_ok, scores)
+        with span("agocs.sched.commit"):
+            if len(table.names) == 1:
+                dyn = bool(table.dynamic[0])
+            else:
+                dyn = lane_const(flags, state.window.device) != 0
+            return finalize(state, cfg, idx, valid, base_ok, pref,
+                            dynamic_bestfit=dyn)
 
     return dispatch
 
@@ -311,7 +318,8 @@ def run_scenarios(state: SimState, windows: EventWindow, knobs: ScenarioKnobs,
                                     lane_scheds, switchless)
 
     def rows_for(s, injected):
-        rows = stats_mod.window_stats(s, cfg)
+        with span("agocs.fleet.stats"):
+            rows = stats_mod.window_stats(s, cfg)
         rows["injected_arrivals"] = injected
         return rows
 

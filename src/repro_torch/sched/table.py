@@ -35,6 +35,7 @@ from repro_torch.kernels.placement_commit.ops import (lane_const,
                                                       sched_commit_fleet)
 from repro_torch.sched.base import base_pass
 from repro_torch.sched.commit import apply_commit, commit_operands
+from repro_torch.trace import span
 
 
 class SchedContext(NamedTuple):
@@ -156,28 +157,31 @@ def make_switchless_dispatch(cfg, table: DispatchTable,
     ext_row = tuple(ext_row)
 
     def dispatch(state_B, rng=None):
-        idx, valid, base_ok, scores = base_pass(state_B, cfg)
-        total, denom, req = commit_operands(state_B, cfg, idx)
+        with span("agocs.sched.base"):
+            idx, valid, base_ok, scores = base_pass(state_B, cfg)
+            total, denom, req = commit_operands(state_B, cfg, idx)
         ext = None
         if ext_groups:
-            ctx = SchedContext(idx=idx, valid=valid, base_ok=base_ok,
-                               scores=scores, req=req,
-                               node_total=state_B.node_total,
-                               node_reserved=state_B.node_reserved,
-                               node_active=state_B.node_active,
-                               window=state_B.window)
-            ext = torch.stack([
-                form.transform(cfg, lane(ctx, b), rng, form.params)
-                for form, lanes in ext_groups.items() for b in lanes])
-        start = torch.remainder(
-            state_B.window * lane_const(rots, state_B.window.device),
-            cfg.max_nodes)
-        node_of, tally = sched_commit_fleet(
-            scores, base_ok, req, valid, total, denom, state_B.node_reserved,
-            start, fam=fam, dynamic=dynamic, ext=ext, ext_row=ext_row,
-            tile_p=cfg.commit_tile_p or None,
-            tile_n=cfg.commit_tile_n or None)
-        return apply_commit(state_B, cfg, idx, node_of, tally)
+            with span("agocs.sched.external"):
+                ctx = SchedContext(idx=idx, valid=valid, base_ok=base_ok,
+                                   scores=scores, req=req,
+                                   node_total=state_B.node_total,
+                                   node_reserved=state_B.node_reserved,
+                                   node_active=state_B.node_active,
+                                   window=state_B.window)
+                ext = torch.stack([
+                    form.transform(cfg, lane(ctx, b), rng, form.params)
+                    for form, lanes in ext_groups.items() for b in lanes])
+        with span("agocs.sched.commit"):
+            start = torch.remainder(
+                state_B.window * lane_const(rots, state_B.window.device),
+                cfg.max_nodes)
+            node_of, tally = sched_commit_fleet(
+                scores, base_ok, req, valid, total, denom,
+                state_B.node_reserved, start, fam=fam, dynamic=dynamic,
+                ext=ext, ext_row=ext_row, tile_p=cfg.commit_tile_p or None,
+                tile_n=cfg.commit_tile_n or None)
+            return apply_commit(state_B, cfg, idx, node_of, tally)
 
     return dispatch
 

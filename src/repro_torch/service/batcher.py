@@ -41,6 +41,7 @@ from repro_torch.resilience.faults import maybe_fault
 from repro_torch.service.metrics import ServiceMetrics
 from repro_torch.service.protocol import (ErrorCode, WhatIfQuery,
                                           WhatIfResult)
+from repro_torch.trace import span
 
 
 class Ticket:
@@ -209,10 +210,11 @@ class MicroBatcher:
         while True:
             maybe_fault("batcher_loop")
             timeout = self._next_deadline()
-            try:
-                t = self._q.get(timeout=timeout)
-            except queue.Empty:
-                t = False                      # deadline tick, nothing new
+            with span("agocs.service.wait"):
+                try:
+                    t = self._q.get(timeout=timeout)
+                except queue.Empty:
+                    t = False                  # deadline tick, nothing new
             if t:
                 self._buckets.setdefault(t.query.batch_key(), []).append(t)
             # launch every full bucket, then any bucket past its wait bound
@@ -291,10 +293,14 @@ class MicroBatcher:
                 live.append(t)
         if not live:
             return True
+        # every ticket the batch leaves behind: still queued, or bucketed
+        self.metrics.on_launch(self._q.qsize() + sum(
+            len(ts) for ts in self._buckets.values()))
         for t in live:
             t.t_start = time.time()
         try:
-            self._execute(live)
+            with span("agocs.service.batch"):
+                self._execute(live)
         except Exception as e:              # noqa: BLE001 — server boundary
             code = getattr(e, "code", ErrorCode.EXECUTOR_ERROR)
             for t in live:

@@ -34,6 +34,8 @@ class ServiceMetrics:
         self.padded_lanes = 0              # inert padding lanes launched
         self.lane_windows = 0              # live lanes x windows simulated
         self.queue_depth = 0               # gauge: tickets waiting or running
+        self.waiting_at_launch = 0         # sum over launches of the tickets
+        #                                    left waiting when each launched
         # --- resilience ------------------------------------------------------
         self.errors_by_code: Dict[str, int] = {}
         self.retries = 0                   # relaunch attempts after a failure
@@ -58,6 +60,11 @@ class ServiceMetrics:
             self.lanes += live
             self.padded_lanes += padded
             self.lane_windows += live * n_windows
+
+    def on_launch(self, waiting: int):
+        """A batch launched, leaving ``waiting`` tickets waiting."""
+        with self._lock:
+            self.waiting_at_launch += waiting
 
     def on_done(self, latency_s: float, ok: bool,
                 code: Optional[str] = None):
@@ -135,6 +142,7 @@ class ServiceMetrics:
                 "padded_lanes": self.padded_lanes,
                 "lane_windows": self.lane_windows,
                 "queue_depth": self.queue_depth,
+                "waiting_at_launch": self.waiting_at_launch,
                 "uptime_s": elapsed,
                 "lanes_per_s": self.lanes / elapsed,
                 "lane_windows_per_s": self.lane_windows / elapsed,

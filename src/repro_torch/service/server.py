@@ -45,6 +45,7 @@ from repro_torch.service.forkpoint import ForkPointStore, build_fork_points
 from repro_torch.service.metrics import ServiceMetrics
 from repro_torch.service.protocol import (ErrorCode, ServingError, WhatIfQuery,
                                           WhatIfResult)
+from repro_torch.trace import span
 
 
 class WhatIfServer:
@@ -305,14 +306,18 @@ class WhatIfServer:
                         if self.cfg.incremental_accounting else 0)
         since = restored_resync_phase(S, self.batch_windows, resync_every)
         with self._device_scope():
-            knobs = build_knobs_for_table(lane_specs, self.scheduler_names,
-                                          self.device)
-            state = self._start_state(queries, S)
+            with span("agocs.service.start_state"):
+                knobs = build_knobs_for_table(lane_specs,
+                                              self.scheduler_names,
+                                              self.device)
+                state = self._start_state(queries, S)
             rows: List[Dict[str, torch.Tensor]] = []
             lo = S
             while lo < S + N:
                 hi = min(S + N, lo + self.batch_windows)
-                windows = self.engines.window_chunk(self.replay_path, lo, hi)
+                with span("agocs.service.chunk"):
+                    windows = self.engines.window_chunk(self.replay_path, lo,
+                                                        hi)
                 maybe_fault("engine_launch")   # chaos: transient launch fail
                 state, stats = batch_mod.run_scenarios(
                     state, windows, knobs, self.cfg, self.scheduler_names,
@@ -325,24 +330,26 @@ class WhatIfServer:
                         state = batch_mod.resync_fleet(state, self.cfg)
                         since = 0
                 lo = hi
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
-            del state
-            frame = {k: torch.cat([r[k] for r in rows]).cpu().numpy()
-                     for k in rows[0]}
+            with span("agocs.service.collect"):
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+                del state
+                frame = {k: torch.cat([r[k] for r in rows]).cpu().numpy()
+                         for k in rows[0]}
 
         self.metrics.on_batch(live, B - live, N)
         results = []
-        for i, q in enumerate(queries):
-            lane = {k: v[:, i:i + 1] for k, v in frame.items()}
-            rep = scenario_report([q.spec.name], lane, [q.spec.scheduler])
-            results.append(WhatIfResult(
-                name=q.spec.name, scheduler=q.spec.scheduler,
-                start_window=S, n_windows=N,
-                row=rep["scenarios"][0],
-                curves=rep["curves"] if q.include_curves else None,
-                frame={k: v[:, i].copy() for k, v in frame.items()},
-                batch_lanes=live, batch_size=B))
+        with span("agocs.service.report"):
+            for i, q in enumerate(queries):
+                lane = {k: v[:, i:i + 1] for k, v in frame.items()}
+                rep = scenario_report([q.spec.name], lane, [q.spec.scheduler])
+                results.append(WhatIfResult(
+                    name=q.spec.name, scheduler=q.spec.scheduler,
+                    start_window=S, n_windows=N,
+                    row=rep["scenarios"][0],
+                    curves=rep["curves"] if q.include_curves else None,
+                    frame={k: v[:, i].copy() for k, v in frame.items()},
+                    batch_lanes=live, batch_size=B))
         return results
 
     # --- telemetry -----------------------------------------------------------
