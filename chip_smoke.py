@@ -223,9 +223,10 @@ Phases, each printing its own lines:
      tensor-core launches, F at qwen2-moe's and G at mamba2's shapes, B and
      D's cluster size; E's surrogate shape).
 
-The seven CUDA kernels are built at first use from every
-``src/repro_torch/csrc/*.cu`` (one nvcc per source, all started together)
-into the git-ignored ``build/kernels/<hash>/``.
+The CUDA kernels (the seven TPU kernels' and the threefry draws') are
+built at first use from every ``src/repro_torch/csrc/*.cu`` (one nvcc per
+source, all started together) into the git-ignored
+``build/kernels/<hash>/``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before it; without a CUDA device, or without the repository
@@ -2556,8 +2557,7 @@ def main(argv=None) -> int:
     print(f"time key draws: one uniform ({P}, {N}) "
           f"{draw_ms['uniform_cell_a']:.4f} ms, one GA generation's pair "
           f"of uniform {ga_shape} {draw_ms['ga_generation_pair']:.4f} ms "
-          f"(plain PyTorch int64 threefry, {prng.CHUNK} positions a "
-          f"chunk) [{smi}]")
+          f"(the threefry kernel, one launch a draw) [{smi}]")
 
     # (b) E at the searches' surrogate shapes, against its plain version:
     # B=1 (SA, tabu) and B=GA_POP (the GA's population, a lane an

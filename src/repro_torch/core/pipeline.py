@@ -93,6 +93,7 @@ class WindowPrefetcher:
         self._src = window_iter
         self._done = object()
         self._error: Optional[BaseException] = None
+        self._drained = False
         self._lock = threading.Lock()
         self._events_in = 0       # staged into the buffer (fill thread)
         self._events_out = 0      # handed to the driver (consumer)
@@ -171,7 +172,7 @@ class WindowPrefetcher:
             self._q.put(self._done)
 
     def __iter__(self):
-        while True:
+        while not self._drained:
             with span("agocs.driver.next_batch"):
                 item = self._q.get()
                 if item is not self._done:
@@ -184,10 +185,13 @@ class WindowPrefetcher:
                         for t in dev:         # allocated on the side stream
                             t.record_stream(stream)
             if item is self._done:
-                if self._error is not None:
-                    raise self._error
-                return
+                break
             yield dev
+        # drained: a later iteration ends at once instead of waiting for a
+        # batch that never comes
+        self._drained = True
+        if self._error is not None:
+            raise self._error
 
 
 def restored_resync_phase(windows_done: int, batch_windows: int,

@@ -40,8 +40,8 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
 F = ctypes.c_float
-# C signatures: pointers and the stream as void*, sizes as int, strides as
-# long long, scales as float
+# C signatures: pointers and the stream as void*, sizes as int (long long
+# where a count may pass 2**31), strides as long long, scales as float
 SIGNATURES: Dict[str, List] = {
     "constraint_match_launch": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     "placement_commit_launch": [P, P, P, P, P, P, P, P, P,
@@ -58,6 +58,7 @@ SIGNATURES: Dict[str, List] = {
                                   I, I, I, I, I, F, P],
     "fused_ce_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     "fused_ce_tc_launch": [P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "threefry_launch": [P, P, L, L, I, P],
 }
 
 _lock = threading.Lock()

@@ -547,12 +547,13 @@ def test_segment_usage_surrogate_shape(dev, B):
 @pytest.mark.parametrize("shape", [(24, 1000), (8, 24, 1000)],
                          ids=["one_key", "a_key_a_row"])
 def test_key_draws_on_card_equal_cpu(dev, shape, monkeypatch):
-    """split, uniform and randint on the card give the CPU's bits, drawn
-    in many chunks of the flat index (the draws are counter-based, so
-    small chunks show what cell A's shapes would; ``chip_smoke.py`` draws
-    those)."""
+    """split, uniform and randint on the card (the threefry kernel) give
+    the CPU's bits, the CPU's drawn in many chunks of the flat index (the
+    draws are counter-based, so small chunks show what cell A's shapes
+    would; ``chip_smoke.py`` draws those)."""
     from repro_torch.core import prng
-    monkeypatch.setattr(prng, "CHUNK", 4096)
+    from repro_torch.kernels.threefry import ref as threefry_ref
+    monkeypatch.setattr(threefry_ref, "CHUNK", 4096)
     out = {}
     for d in (dev, torch.device("cpu")):
         k = prng.split(prng.key(7, d), 4)

@@ -7,7 +7,8 @@ the counterpart of ``tests/test_pipeline_async.py``:
 * the run-ahead is bounded: beyond ``max_inflight_batches`` outstanding
   batches the loop waits on the oldest batch's event (counted through the
   ``_batch_done`` hook, which gives CUDA events on the card);
-* the prefetcher's occupancy ledger balances;
+* the prefetcher's occupancy ledger balances, and a drained prefetcher
+  iterates empty again;
 * batches are device-resident and unaliased: with more batches than the
   staging ring has slots, every yielded batch still equals ``np.stack``
   of its windows, and a short tail batch is stacked on its own;
@@ -21,6 +22,7 @@ donation is ``run_windows`` taking ownership of the state (its tables
 updated in place, no second copy).
 """
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -180,6 +182,20 @@ def test_staging_ring_tail_batch_stacks_alone():
     got = list(pf)
     assert [b.kind.shape[0] for b in got] == [4, 1]
     np.testing.assert_array_equal(got[1].kind.numpy(), ws[4].kind[None])
+
+
+def test_drained_prefetcher_iterates_empty_again():
+    """Once its source is drained, a second pass over the prefetcher ends
+    at once (a driver whose stream ran dry, then a drain of the fill
+    thread) instead of waiting for a batch that never comes."""
+    pf = pipe.WindowPrefetcher(CFG, iter(_windows(5)), batch_windows=4,
+                               device="cpu")
+    assert [b.kind.shape[0] for b in pf] == [4, 1]
+    again = []
+    t = threading.Thread(target=lambda: again.append(list(pf)), daemon=True)
+    t.start()
+    t.join(30)
+    assert again == [[]]
 
 
 def test_run_windows_takes_ownership_of_the_state():

@@ -15,6 +15,7 @@ from repro_torch.core import engine, prng
 from repro_torch.core.events import (EventKind, HostEvent, pack_window,
                                      stack_windows, window_to_torch)
 from repro_torch.core.state import init_state
+from repro_torch.kernels.threefry import ref as threefry_ref
 from repro_torch.scenarios import ScenarioSpec, build_knobs
 from repro_torch.scenarios import batch as batch_mod
 from repro_torch.sched import (TableForm, register_scheduler,
@@ -96,11 +97,13 @@ def test_stacked_keys_draw_as_vmap():
 
 
 def test_chunked_draws_equal_whole_draws(monkeypatch):
+    """The CPU path's chunks of the flat index (``kernels/threefry/ref``)
+    give the whole draw's bits."""
     tk = prng.split(prng.key(11), 4)
     whole_u = prng.uniform(tk, (3, 50, 41))
     whole_b = prng.bits(tk[0], (7, 300))
     for chunk in (1, 97, 1000):
-        monkeypatch.setattr(prng, "CHUNK", chunk)
+        monkeypatch.setattr(threefry_ref, "CHUNK", chunk)
         assert torch.equal(prng.uniform(tk, (3, 50, 41)), whole_u), chunk
         assert torch.equal(prng.bits(tk[0], (7, 300)), whole_b), chunk
     jk = jax.random.split(jax.random.PRNGKey(11), 4)
